@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--log-rows K]
+
+1. prints the card (``nvidia-smi`` name and power limit);
+2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc``;
+3. holds every kernel bit for bit against its plain torch version on the
+   card, and times both at the shapes the prover gives them;
+4. proves one STARK shard at the core FRI config (blowup 2, 84 queries,
+   16 PoW bits) through ``StarkMachine.setup`` / ``prove_shard`` on the card
+   and checks it with ``verify_shard``, then requires a tampered proof to
+   be rejected; the shard's chips have the widths of the largest chips of a
+   2^20-cycle core shard (Cpu-, AddSub- and Byte-shaped, see below), with
+   traces made from ``--seed``;
+5. proves a small shard of the same chips on the card and on the CPU and
+   requires the two proofs to be equal field by field;
+6. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
+   and, last, ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, without the last line, when there is no CUDA device,
+when the package is missing, or when any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+P = 0x7F000001
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_FP32_OPS_PER_S = 67e12  # CUDA-core float32 rate, the table's non-tensor entry
+MULS_PER_PERM = 490 * 3  # Montgomery products per permutation x 32-bit multiplies each
+
+# --- the workload -------------------------------------------------------------
+#
+# Byte ops of the table chip: result of op k on bytes (x, y); op 8 is a
+# plain range check with result 0.
+BYTE_OPS = [
+    lambda x, y: x & y,
+    lambda x, y: x | y,
+    lambda x, y: x ^ y,
+    lambda x, y: (x + y) & 0xFF,
+    lambda x, y: (x + y) >> 8,
+    lambda x, y: (x < y).astype(np.uint32),
+    lambda x, y: (x << (y & 7)) & 0xFF,
+    lambda x, y: x >> (y & 7),
+    lambda x, y: np.zeros_like(x),
+]
+N_BYTE_OPS = len(BYTE_OPS)
+CPU_LOOKUPS = 21  # the reference Cpu chip's lookup count: 12 extension permutation columns
+CPU_PAIRS = 11
+
+
+def _airs():
+    from zkmips_tpu_torch.stark.air import LookupKind
+    from zkmips_tpu_torch.stark.chip import BaseAir
+
+    class CpuShaped(BaseAir):
+        """63 columns, degree-4 constraints (log quotient degree 2), 21 byte
+        lookups on every row: is_real, clk, 11 byte pairs (x_i, y_i), 21 op
+        results, 11 products x_i*y_i, 4 triple products, a running sum
+        (bound to the public value), a result sum, a flag bit."""
+
+        name = "CpuShaped"
+        main_width = 63
+        X0, R0, M0, C0, ACC, SUM, FLAG = 2, 24, 45, 56, 60, 61, 62
+
+        def eval(self, b):
+            real = b.main(0)
+            x = [b.main(self.X0 + 2 * i) for i in range(CPU_PAIRS)]
+            y = [b.main(self.X0 + 2 * i + 1) for i in range(CPU_PAIRS)]
+            r = [b.main(self.R0 + k) for k in range(CPU_LOOKUPS)]
+            m = [b.main(self.M0 + i) for i in range(CPU_PAIRS)]
+            b.assert_bool(real)
+            b.when_first_row().assert_zero(b.main(1))
+            b.when_transition().assert_eq(b.main(1, 1), b.main(1) + 1)
+            on = b.when(real)
+            for i in range(CPU_PAIRS):
+                on.assert_eq(m[i], x[i] * y[i])
+            for j in range(4):
+                on.assert_eq(b.main(self.C0 + j), x[2 * j] * y[2 * j] * m[2 * j + 1])
+            acc = b.main(self.ACC)
+            b.when_first_row().assert_eq(acc, r[0])
+            b.when_transition().assert_eq(b.main(self.ACC, 1), acc + b.main(self.R0, 1))
+            b.when_last_row().assert_eq(acc, b.public_value(0))
+            total = r[0]
+            for v in r[1:]:
+                total = total + v
+            b.assert_eq(b.main(self.SUM), total)
+            b.assert_bool(b.main(self.FLAG))
+            for k in range(CPU_LOOKUPS):
+                i = k // 2
+                b.send(LookupKind.Byte, [k % N_BYTE_OPS, x[i], y[i], r[k]], real)
+
+        def generate_trace(self, record, output):
+            return record[self.name]
+
+    class AddSubShaped(BaseAir):
+        """22 columns, degree 3: a 32-bit add by bytes with carries, the
+        three words, a flag, a row counter; 3 byte range lookups per row."""
+
+        name = "AddSubShaped"
+        main_width = 22
+
+        def eval(self, b):
+            real = b.main(0)
+            a = [b.main(1 + i) for i in range(4)]
+            bb = [b.main(5 + i) for i in range(4)]
+            c = [b.main(9 + i) for i in range(4)]
+            carry = [b.main(13 + i) for i in range(4)]
+            b.assert_bool(real)
+            on = b.when(real)
+            for i in range(4):
+                b.assert_bool(carry[i])
+                rhs = a[i] + bb[i] + (carry[i - 1] if i else 0)
+                on.assert_eq(c[i] + carry[i] * 256, rhs)
+            for col, limbs in ((17, a), (18, bb), (19, c)):
+                b.assert_eq(b.main(col), limbs[0] + limbs[1] * 256 + limbs[2] * 65536 + limbs[3] * (1 << 24))
+            b.assert_bool(b.main(20))
+            b.when_first_row().assert_zero(b.main(21))
+            b.when_transition().assert_eq(b.main(21, 1), b.main(21) + 1)
+            b.send(LookupKind.Byte, [8, c[0], c[1], 0], real)
+            b.send(LookupKind.Byte, [8, c[2], c[3], 0], real)
+            b.send(LookupKind.Byte, [8, a[0], bb[0], 0], real)
+
+        def generate_trace(self, record, output):
+            return record[self.name]
+
+    class ByteShaped(BaseAir):
+        """The byte table: 2^16 preprocessed rows (x, y and 8 op results),
+        9 multiplicity columns, one receive per op."""
+
+        name = "ByteShaped"
+        main_width = N_BYTE_OPS
+        preprocessed_width = 10
+
+        def eval(self, b):
+            x, y = b.preprocessed(0), b.preprocessed(1)
+            for k in range(N_BYTE_OPS):
+                res = b.preprocessed(2 + k) if k < 8 else 0
+                b.receive(LookupKind.Byte, [k, x, y, res], b.main(k))
+
+        def generate_preprocessed(self, program):
+            r = np.arange(1 << 16, dtype=np.uint32)
+            x, y = r & 0xFF, r >> 8
+            return np.stack([x, y] + [op(x, y) for op in BYTE_OPS[:8]], axis=1).astype(np.uint32)
+
+        def generate_trace(self, record, output):
+            return record[self.name]
+
+    return CpuShaped, AddSubShaped, ByteShaped
+
+
+def build_machine():
+    from zkmips_tpu_torch.stark.chip import Chip
+    from zkmips_tpu_torch.stark.machine import StarkConfig, StarkMachine
+
+    cpu, addsub, byte = _airs()
+    chips = [Chip(cpu(), 1), Chip(addsub(), 1), Chip(byte(), 1)]
+    return StarkMachine(StarkConfig.core(), chips, num_public_values=1)
+
+
+def build_record(log_rows: int, seed: int):
+    """Canonical uint32 traces for every chip and the public values."""
+    rng = np.random.default_rng(seed)
+    h = 1 << log_rows
+    mult = np.zeros((1 << 16, N_BYTE_OPS), dtype=np.uint64)
+
+    def count(op, x, y):
+        mult[:, op] += np.bincount((x + (y << 8)).astype(np.int64), minlength=1 << 16).astype(np.uint64)
+
+    cpu = np.zeros((h, 63), dtype=np.uint64)
+    cpu[:, 0] = 1
+    cpu[:, 1] = np.arange(h)
+    xy = rng.integers(0, 256, size=(h, 2 * CPU_PAIRS), dtype=np.uint64)
+    cpu[:, 2:24] = xy
+    x, y = xy[:, 0::2], xy[:, 1::2]
+    for k in range(CPU_LOOKUPS):
+        i, op = k // 2, k % N_BYTE_OPS
+        cpu[:, 24 + k] = BYTE_OPS[op](x[:, i], y[:, i])
+        count(op, x[:, i], y[:, i])
+    m = x * y
+    cpu[:, 45:56] = m
+    for j in range(4):
+        cpu[:, 56 + j] = x[:, 2 * j] * y[:, 2 * j] % P * m[:, 2 * j + 1] % P
+    cpu[:, 60] = np.cumsum(cpu[:, 24]) % P
+    cpu[:, 61] = cpu[:, 24:45].sum(axis=1)
+    cpu[:, 62] = x[:, 0] & 1
+
+    add = np.zeros((h, 22), dtype=np.uint64)
+    add[:, 0] = 1
+    a = rng.integers(0, 256, size=(h, 4), dtype=np.uint64)
+    b = rng.integers(0, 256, size=(h, 4), dtype=np.uint64)
+    carry = np.zeros(h, dtype=np.uint64)
+    for i in range(4):
+        s = a[:, i] + b[:, i] + carry
+        add[:, 1 + i], add[:, 5 + i], add[:, 9 + i] = a[:, i], b[:, i], s & 0xFF
+        carry = s >> 8
+        add[:, 13 + i] = carry
+    for col, limbs in ((17, add[:, 1:5]), (18, add[:, 5:9]), (19, add[:, 9:13])):
+        add[:, col] = (limbs * np.array([1, 256, 65536, 1 << 24], dtype=np.uint64)).sum(axis=1) % P
+    add[:, 20] = rng.integers(0, 2, size=h, dtype=np.uint64)
+    add[:, 21] = np.arange(h)
+    count(8, add[:, 9], add[:, 10])
+    count(8, add[:, 11], add[:, 12])
+    count(8, add[:, 1], add[:, 5])
+
+    record = {"CpuShaped": cpu.astype(np.uint32), "AddSubShaped": add.astype(np.uint32),
+              "ByteShaped": mult.astype(np.uint32)}
+    return record, np.array([cpu[-1, 60]], dtype=np.uint32)
+
+
+# --- measurement helpers ------------------------------------------------------
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def poseidon2_bound(perms: int, bytes_moved: int) -> tuple[float, str]:
+    """Least time for the work: the larger of bytes over HBM rate and integer
+    multiplies over the CUDA-core rate (ms, and which of the two it is)."""
+    t_bytes = bytes_moved / H100_BYTES_PER_S
+    t_ops = perms * MULS_PER_PERM / H100_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def rand_field(rng, shape, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, P, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
+    """Hold each kernel against its plain version on the card; time both at
+    the prover's shapes.  Returns {name: record}."""
+    from zkmips_tpu_torch.ops import poseidon2 as p2, poseidon2_cuda as k
+
+    errs = {"poseidon2_hash_rows": [], "poseidon2_compress": [], "poseidon2_permute": []}
+
+    def check(name, got, want, what):
+        e = max_err(got, want)
+        errs[name].append(e)
+        print(f"kernel {name} {what}: max_abs_err {e}", flush=True)
+        if e != 0 or got.shape != want.shape:
+            raise AssertionError(f"{name} {what} disagrees with its plain version")
+
+    for w in (1, 8, 13, 64, 88):
+        m = rand_field(rng, (1024, w), dev)
+        check("poseidon2_hash_rows", k.hash_rows(m), p2.hash_matrix_rows_plain(m), f"(1024, {w})")
+    for shape in ((1000, 21), (1 << 21, 63), (1 << 21, main_hash_w)):
+        m = rand_field(rng, shape, dev)
+        check("poseidon2_hash_rows", k.hash_rows(m), p2.hash_matrix_rows_plain(m), str(shape))
+    big = m  # the main commit's leaf layer shape
+
+    pairs = rand_field(rng, (2048, 16), dev)
+    check("poseidon2_compress", k.compress(pairs), p2.compress_plain(pairs[:, :8], pairs[:, 8:]), "2048 pairs")
+    cur_k = cur_p = rand_field(rng, (4096, 8), dev)
+    while cur_k.shape[0] > 1:
+        cur_k = k.compress(torch.cat([cur_k[0::2], cur_k[1::2]], dim=1))
+        cur_p = p2.compress_plain(cur_p[0::2], cur_p[1::2])
+        check("poseidon2_compress", cur_k, cur_p, f"tree level {cur_k.shape[0]}")
+    states = rand_field(rng, (1 << 16, 16), dev)
+    check("poseidon2_permute", k.permute(states), p2.permute_plain(states), "65536 states")
+
+    # the prover's shapes: the main commit's leaf hash (above), its first
+    # Merkle level, one proof-of-work batch; compared, then timed
+    n_pairs = big.shape[0] // 2
+    leaves = k.hash_rows(big)
+    tree_pairs = torch.cat([leaves[0::2], leaves[1::2]], dim=1)
+    check("poseidon2_compress", k.compress(tree_pairs),
+          p2.compress_plain(tree_pairs[:, :8], tree_pairs[:, 8:]), f"{n_pairs} pairs")
+    grind = rand_field(rng, (1 << 18, 16), dev)
+    check("poseidon2_permute", k.permute(grind), p2.permute_plain(grind), f"{grind.shape[0]} states")
+    cases = {
+        "poseidon2_hash_rows": (
+            lambda: k.hash_rows(big), lambda: p2.hash_matrix_rows_plain(big), 3,
+            big.shape[0] * -(-big.shape[1] // 8), big.numel() * 4 + big.shape[0] * 32,
+            "zkmips_tpu/ops/pallas_p2.py:135", f"hash_rows {tuple(big.shape)}",
+        ),
+        "poseidon2_compress": (
+            lambda: k.compress(tree_pairs), lambda: p2.compress_plain(tree_pairs[:, :8], tree_pairs[:, 8:]), 10,
+            n_pairs, n_pairs * 64 + n_pairs * 32,
+            "zkmips_tpu/ops/pallas_p2.py:189", f"compress {n_pairs} pairs",
+        ),
+        "poseidon2_permute": (
+            lambda: k.permute(grind), lambda: p2.permute_plain(grind), 10,
+            grind.shape[0], grind.numel() * 8,
+            "zkmips_tpu/stark/pcs.py:1068", f"permute {grind.shape[0]} states",
+        ),
+    }
+    out = {}
+    for name, (kern, plain, reps, perms, nbytes, replaces, shape) in cases.items():
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 1)
+        bound_ms, bound_by = poseidon2_bound(perms, nbytes)
+        out[name] = {
+            "name": name, "route": "cuda", "source": "zkmips_tpu_torch/csrc/poseidon2.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": max(errs[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": shape,
+        }
+        print(f"time {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return out
+
+
+def small_proof(machine, record, pv, device) -> dict:
+    """Setup + prove_shard on ``device``; the proof as numpy fields."""
+    from zkmips_tpu_torch import convert
+
+    pk = machine.setup(None, device=device)
+    return convert.shard_proof_to_numpy(machine.prove_shard(pk, record, pv, device=device))
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-rows", type=int, default=20, help="log2 rows of the Cpu/AddSub chips")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.stark.machine import VerificationError
+    from zkmips_tpu_torch.utils import logger
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+
+    t0 = time.perf_counter()
+    lib = poseidon2_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}", flush=True)
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+
+    machine = build_machine()
+    for c in machine.chips:
+        print(f"chip {c!r} lqd={c.log_quotient_degree} constraints={len(c.constraints)}", flush=True)
+    cpu_w = machine.chip_map["CpuShaped"].main_width
+    add_w = machine.chip_map["AddSubShaped"].main_width
+    records = kernel_phase(dev, rng, cpu_w + add_w, card)
+
+    # main path
+    t0 = time.perf_counter()
+    record, pv = build_record(args.log_rows, args.seed)
+    cells = sum(t.size for t in record.values())
+    print(f"workload: 2^{args.log_rows} rows, {cells} trace cells, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    logger.configure(enabled=True, sync=True, echo=False)
+    t0 = time.perf_counter()
+    pk = machine.setup(None)
+    torch.cuda.synchronize()
+    print(f"setup: {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    logger.spans_reset()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    proof = machine.prove_shard(pk, record, pv)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    logger.configure(enabled=False)
+    stages = {k: round(v[0], 4) for k, v in logger.spans_report().items()}
+    print(f"prove_shard: {prove_s:.3f} s, peak device memory {peak_gb:.2f} GiB [{card}]", flush=True)
+    print("stages: " + json.dumps({"card": card, "seconds": stages}), flush=True)
+    print(f"launches on the main path: {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+        records[name]["launches"] = n
+
+    t0 = time.perf_counter()
+    assert machine.verify_shard(pk.vk, proof)
+    print(f"verify_shard: accepted in {time.perf_counter() - t0:.3f} s", flush=True)
+    bad = proof.opened[0].main_local.clone()
+    bad[0, 0] ^= 1
+    proof.opened[0].main_local = bad
+    try:
+        machine.verify_shard(pk.vk, proof)
+    except VerificationError as e:
+        print(f"tampered proof rejected: {e}", flush=True)
+    else:
+        raise AssertionError("a tampered proof was accepted")
+    del proof, pk, record
+
+    # a small shard on the card and on the CPU must give the same proof
+    small, small_pv = build_record(8, args.seed + 1)
+    t0 = time.perf_counter()
+    if not _same(small_proof(machine, small, small_pv, dev), small_proof(machine, small, small_pv, "cpu")):
+        raise AssertionError("the card's proof of the small shard differs from the CPU's")
+    print(f"small shard: card and CPU proofs equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    print(json.dumps({"kernels": [
+        {k: v for k, v in r.items() if k != "shape"} for r in records.values()
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
