@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--log-rows K]
+    python3 chip_smoke.py [--seed N] [--log-rows K] [--only-kernels]
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc``;
+2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
+   prints what the compiler made of them: registers and spills (``ptxas``)
+   and the machine instructions of each kernel (``sass``, by opcode);
 3. holds every kernel bit for bit against its plain torch version on the
-   card, and times both at the shapes the prover gives them;
+   card, first at edge vectors (the field's ends, middle and powers of two),
+   then at the shapes the prover gives them, and times both there;
+   ``--only-kernels`` stops here, after the ``kernels`` line, with exit
+   code 0 and without the last line;
 4. proves one STARK shard at the core FRI config (blowup 2, 84 queries,
    16 PoW bits) through ``StarkMachine.setup`` / ``prove_shard`` on the card
    and checks it with ``verify_shard``, then requires a tampered proof to
@@ -36,6 +41,9 @@ import torch
 P = 0x7F000001
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # CUDA-core float32 rate, the table's non-tensor entry
+# 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper): the rate at which
+# the card can issue the 32-bit integer multiplies the kernels are made of
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MULS_PER_PERM = 490 * 3  # Montgomery products per permutation x 32-bit multiplies each
 
 # --- the workload -------------------------------------------------------------
@@ -233,12 +241,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def poseidon2_bound(perms: int, bytes_moved: int) -> tuple[float, str]:
+def poseidon2_bound(perms: int, bytes_moved: int) -> tuple[float, str, float]:
     """Least time for the work: the larger of bytes over HBM rate and integer
-    multiplies over the CUDA-core rate (ms, and which of the two it is)."""
+    multiplies over the CUDA-core rate (ms, and which of the two it is).
+    Third, the same multiplies over the integer rate: the float32 rate counts
+    two operations per lane and 128 lanes, integer multiplies issue on 64."""
     t_bytes = bytes_moved / H100_BYTES_PER_S
     t_ops = perms * MULS_PER_PERM / H100_FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    t_int = perms * MULS_PER_PERM / H100_INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", max(t_bytes, t_int) * 1e3
 
 
 def rand_field(rng, shape, dev) -> torch.Tensor:
@@ -263,6 +274,17 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
         if e != 0 or got.shape != want.shape:
             raise AssertionError(f"{name} {what} disagrees with its plain version")
 
+    # edge vectors first: lazily reduced arithmetic fails here, not on random words
+    for w in (1, 8, 13, 85):
+        m = torch.from_numpy(p2.edge_matrix(w, 100 + w).astype(np.int32)).to(dev)
+        check("poseidon2_hash_rows", k.hash_rows(m), p2.hash_matrix_rows_plain(m), f"edge vectors, width {w}")
+    edge = torch.from_numpy(p2.edge_matrix(16, 116, mixed_rows=4087).astype(np.int32)).to(dev)
+    check("poseidon2_permute", k.permute(edge), p2.permute_plain(edge), "edge vectors")
+    halves = edge[:, :8].contiguous(), edge[:, 8:].contiguous()
+    check("poseidon2_compress", k.compress(*halves), p2.compress_plain(*halves), "edge vectors")
+    check("poseidon2_compress", k.compress_layer(edge.view(-1, 8)), p2.compress_plain(*halves),
+          "edge vectors, in place")
+
     for w in (1, 8, 13, 64, 88):
         m = rand_field(rng, (1024, w), dev)
         check("poseidon2_hash_rows", k.hash_rows(m), p2.hash_matrix_rows_plain(m), f"(1024, {w})")
@@ -271,11 +293,11 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
         check("poseidon2_hash_rows", k.hash_rows(m), p2.hash_matrix_rows_plain(m), str(shape))
     big = m  # the main commit's leaf layer shape
 
-    pairs = rand_field(rng, (2048, 16), dev)
-    check("poseidon2_compress", k.compress(pairs), p2.compress_plain(pairs[:, :8], pairs[:, 8:]), "2048 pairs")
+    left, right = rand_field(rng, (2048, 8), dev), rand_field(rng, (2048, 8), dev)
+    check("poseidon2_compress", k.compress(left, right), p2.compress_plain(left, right), "2048 pairs")
     cur_k = cur_p = rand_field(rng, (4096, 8), dev)
     while cur_k.shape[0] > 1:
-        cur_k = k.compress(torch.cat([cur_k[0::2], cur_k[1::2]], dim=1))
+        cur_k = k.compress_layer(cur_k)
         cur_p = p2.compress_plain(cur_p[0::2], cur_p[1::2])
         check("poseidon2_compress", cur_k, cur_p, f"tree level {cur_k.shape[0]}")
     states = rand_field(rng, (1 << 16, 16), dev)
@@ -285,9 +307,8 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
     # Merkle level, one proof-of-work batch; compared, then timed
     n_pairs = big.shape[0] // 2
     leaves = k.hash_rows(big)
-    tree_pairs = torch.cat([leaves[0::2], leaves[1::2]], dim=1)
-    check("poseidon2_compress", k.compress(tree_pairs),
-          p2.compress_plain(tree_pairs[:, :8], tree_pairs[:, 8:]), f"{n_pairs} pairs")
+    check("poseidon2_compress", k.compress_layer(leaves),
+          p2.compress_plain(leaves[0::2], leaves[1::2]), f"{n_pairs} pairs")
     grind = rand_field(rng, (1 << 18, 16), dev)
     check("poseidon2_permute", k.permute(grind), p2.permute_plain(grind), f"{grind.shape[0]} states")
     cases = {
@@ -297,7 +318,7 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
             "zkmips_tpu/ops/pallas_p2.py:135", f"hash_rows {tuple(big.shape)}",
         ),
         "poseidon2_compress": (
-            lambda: k.compress(tree_pairs), lambda: p2.compress_plain(tree_pairs[:, :8], tree_pairs[:, 8:]), 10,
+            lambda: k.compress_layer(leaves), lambda: p2.compress_plain(leaves[0::2], leaves[1::2]), 10,
             n_pairs, n_pairs * 64 + n_pairs * 32,
             "zkmips_tpu/ops/pallas_p2.py:189", f"compress {n_pairs} pairs",
         ),
@@ -311,7 +332,7 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
     for name, (kern, plain, reps, perms, nbytes, replaces, shape) in cases.items():
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, 1)
-        bound_ms, bound_by = poseidon2_bound(perms, nbytes)
+        bound_ms, bound_by, int_bound_ms = poseidon2_bound(perms, nbytes)
         out[name] = {
             "name": name, "route": "cuda", "source": "zkmips_tpu_torch/csrc/poseidon2.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": max(errs[name]),
@@ -319,8 +340,15 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
             "library_ms": None, "shape": shape,
         }
         print(f"time {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+              f"bound {bound_ms:.4f} ms ({bound_by}), at the integer rate {int_bound_ms:.4f} ms, "
+              f"{perms / ms / 1e6:.4f} x 10^9 permutations/s [{card}]", flush=True)
     return out
+
+
+def print_kernels(records: dict):
+    print(json.dumps({"kernels": [
+        {k: v for k, v in r.items() if k != "shape"} for r in records.values()
+    ]}), flush=True)
 
 
 def small_proof(machine, record, pv, device) -> dict:
@@ -345,6 +373,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-rows", type=int, default=20, help="log2 rows of the Cpu/AddSub chips")
+    ap.add_argument("--only-kernels", action="store_true",
+                    help="stop after the kernel phase and its kernels line (exit code 0, no last line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -368,6 +398,8 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
+    sass = poseidon2_cuda.sass_counts(lib)
+    print("sass: " + (json.dumps(sass) if sass else "cuobjdump not found, instructions not counted"), flush=True)
 
     machine = build_machine()
     for c in machine.chips:
@@ -375,6 +407,9 @@ def main() -> int:
     cpu_w = machine.chip_map["CpuShaped"].main_width
     add_w = machine.chip_map["AddSubShaped"].main_width
     records = kernel_phase(dev, rng, cpu_w + add_w, card)
+    if args.only_kernels:
+        print_kernels(records)
+        return 0
 
     # main path
     t0 = time.perf_counter()
@@ -427,9 +462,7 @@ def main() -> int:
         raise AssertionError("the card's proof of the small shard differs from the CPU's")
     print(f"small shard: card and CPU proofs equal ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print(json.dumps({"kernels": [
-        {k: v for k, v in r.items() if k != "shape"} for r in records.values()
-    ]}), flush=True)
+    print_kernels(records)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

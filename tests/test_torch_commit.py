@@ -69,6 +69,42 @@ def test_merkle_layers_and_openings():
     assert not bool(ok[0]) and bool(ok[1:].all())
 
 
+@pytest.mark.parametrize("heights", [(64, 64, 16, 2), (256, 32, 32, 1), (8,)])
+def test_merkle_mixed_height_root(heights):
+    """build_layers compresses each level in place and folds shorter
+    matrices in where the layer reaches their height: every layer and the
+    root equal the reference's."""
+    rng = np.random.default_rng(sum(heights))
+    mats = [rand_fp(rng, (h, 1 + i)) for i, h in enumerate(heights)]
+    jlayers = jmerkle.build_layers(mats)
+    tlayers = tmerkle.build_layers([T(m) for m in mats])
+    assert len(jlayers) == len(tlayers)
+    for jl, tl in zip(jlayers, tlayers):
+        assert np.array_equal(N(tl), jl)
+    assert np.array_equal(N(tmerkle.MerkleTree([T(m) for m in mats]).root), jmerkle.MerkleTree(mats).root)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heights", [(64, 64, 16, 2), (256, 32, 32, 1), (8,)])
+def test_merkle_mixed_height_root_kernel(heights):
+    """The same tree on the card: one compress launch per level and one per
+    folded-in height, none of them through a copy of the layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+
+    rng = np.random.default_rng(sum(heights))
+    mats = [rand_fp(rng, (h, 1 + i)) for i, h in enumerate(heights)]
+    jlayers = jmerkle.build_layers(mats)
+    poseidon2_cuda.reset_launches()
+    tlayers = tmerkle.build_layers([T(m, torch.device("cuda")) for m in mats])
+    levels = max(heights).bit_length() - 1
+    folded = len({h for h in heights if h < max(heights)})
+    assert poseidon2_cuda.LAUNCHES["poseidon2_compress"] == levels + folded
+    for jl, tl in zip(jlayers, tlayers):
+        assert np.array_equal(N(tl), jl)
+
+
 def _commit_pair(specs, seed):
     rng = np.random.default_rng(seed)
     jdm, tdm = [], []

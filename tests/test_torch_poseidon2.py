@@ -68,6 +68,50 @@ def test_tree_levels(n):
         assert np.array_equal(N(cur_t), cur)
 
 
+@pytest.mark.parametrize("n", [64, 4096])
+def test_compress_layer_down_a_tree(n):
+    cur = rand_fp(6, (n, 8))
+    cur_t = T(cur)
+    while cur.shape[0] > 1:
+        cur = jp.compress(cur[0::2], cur[1::2])
+        cur_t = tp.compress_layer(cur_t)
+        assert np.array_equal(N(cur_t), cur)
+
+
+# Edge vectors: rows of one edge word each (0, 1, p-1, p-2, (p±1)/2, 2^24-1,
+# 2^24, 2^31-2^24) and a seeded mix of those with random words.  The plain
+# versions run here and fix the values the kernels are held to on the card.
+EDGE_WIDTHS = [1, 8, 13, 85]
+
+
+def test_edge_words_are_field_elements():
+    assert set(tp.EDGE_WORDS) >= {0, 1, jf.P - 1, jf.P - 2, (jf.P - 1) // 2, (jf.P + 1) // 2,
+                                  2**24 - 1, 2**24, 2**31 - 2**24}
+    m = tp.edge_matrix(16, 0)
+    assert m.dtype == np.uint32 and m.max() < jf.P and m.shape == (len(tp.EDGE_WORDS) + 64, 16)
+    for i, word in enumerate(tp.EDGE_WORDS):
+        assert (m[i] == word).all()
+
+
+def test_permute_edge_vectors():
+    s = tp.edge_matrix(16, 9)
+    assert np.array_equal(N(tp.permute(T(s))), jp.permute(s))
+
+
+@pytest.mark.parametrize("w", EDGE_WIDTHS)
+def test_hash_rows_edge_vectors(w):
+    m = tp.edge_matrix(w, 10 + w)
+    assert np.array_equal(N(tp.hash_matrix_rows(T(m))), jp.hash_matrix_rows(m))
+
+
+def test_compress_edge_vectors():
+    s = tp.edge_matrix(16, 11)
+    l, r = np.ascontiguousarray(s[:, :8]), np.ascontiguousarray(s[:, 8:])
+    want = jp.compress(l, r)
+    assert np.array_equal(N(tp.compress(T(l), T(r))), want)
+    assert np.array_equal(N(tp.compress_layer(T(s.reshape(-1, 8)))), want)
+
+
 def test_permute():
     s = rand_fp(7, (300, 16))
     assert np.array_equal(N(tp.permute(T(s))), jp.permute(s))
@@ -136,3 +180,36 @@ def test_permute_kernel_and_grind(cuda):
     jc.observe(9)
     tc.observe(9)
     assert tc.grind(12, cuda) == jc.grind(12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 4096])
+def test_compress_layer_down_a_tree_kernel(cuda, n):
+    cur = rand_fp(6, (n, 8))
+    cur_t = T(cur, cuda)
+    while cur.shape[0] > 1:
+        cur = jp.compress(cur[0::2], cur[1::2])
+        cur_t = tp.compress_layer(cur_t)
+        assert np.array_equal(N(cur_t), cur)
+
+
+@pytest.mark.gpu
+def test_permute_edge_vectors_kernel(cuda):
+    s = tp.edge_matrix(16, 9)
+    assert np.array_equal(N(tp.permute(T(s, cuda))), jp.permute(s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", EDGE_WIDTHS)
+def test_hash_rows_edge_vectors_kernel(cuda, w):
+    m = tp.edge_matrix(w, 10 + w)
+    assert np.array_equal(N(tp.hash_matrix_rows(T(m, cuda))), jp.hash_matrix_rows(m))
+
+
+@pytest.mark.gpu
+def test_compress_edge_vectors_kernel(cuda):
+    s = tp.edge_matrix(16, 11)
+    l, r = np.ascontiguousarray(s[:, :8]), np.ascontiguousarray(s[:, 8:])
+    want = jp.compress(l, r)
+    assert np.array_equal(N(tp.compress(T(l, cuda), T(r, cuda))), want)
+    assert np.array_equal(N(tp.compress_layer(T(s.reshape(-1, 8), cuda))), want)

@@ -123,16 +123,24 @@ __global__ void hash_rows_kernel(const uint32_t* __restrict__ mat, int64_t n, in
   for (int i = 0; i < RATE; ++i) dst[i] = s[i];
 }
 
-// OUT_W = 8: (n, 16) -> (n, 8), the 2-to-1 compression; 16: the full permutation
+// One permutation per row; the 16-word state is read as two halves, row i of
+// `left` and of `right`, each `stride` words apart (a contiguous (n, 16)
+// matrix is left = in, right = in + 8, stride 16; a Merkle layer compressed
+// in place is the same with digests 2i and 2i + 1 as the halves).
+// OUT_W = 8: the 2-to-1 compression; 16: the full permutation.
 template <int OUT_W>
-__global__ void permute_kernel(const uint32_t* __restrict__ in, int64_t n,
-                               uint32_t* __restrict__ out) {
+__global__ void permute_kernel(const uint32_t* __restrict__ left, const uint32_t* __restrict__ right,
+                               int64_t stride, int64_t n, uint32_t* __restrict__ out) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (row >= n) return;
-  const uint32_t* src = in + row * WIDTH;
+  const uint32_t* l = left + row * stride;
+  const uint32_t* r = right + row * stride;
   uint32_t s[WIDTH];
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = src[i];
+  for (int i = 0; i < RATE; ++i) {
+    s[i] = l[i];
+    s[RATE + i] = r[i];
+  }
   permute(s);
   uint32_t* dst = out + row * OUT_W;
 #pragma unroll
@@ -165,13 +173,17 @@ int zkm_p2_hash_rows(const uint32_t* mat, int64_t n, int64_t w, uint32_t* out, v
   return static_cast<int>(cudaGetLastError());
 }
 
-int zkm_p2_compress(const uint32_t* pairs, int64_t n, uint32_t* out, void* stream) {
-  permute_kernel<RATE><<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(pairs, n, out);
+// left, right: n rows of 8 words each, `stride` words from one row to the next
+int zkm_p2_compress(const uint32_t* left, const uint32_t* right, int64_t stride, int64_t n,
+                    uint32_t* out, void* stream) {
+  permute_kernel<RATE><<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      left, right, stride, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int zkm_p2_permute(const uint32_t* states, int64_t n, uint32_t* out, void* stream) {
-  permute_kernel<WIDTH><<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(states, n, out);
+  permute_kernel<WIDTH><<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      states, states + RATE, WIDTH, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,7 @@ def build_layers(matrices) -> list:
     layers = [cur]
     while size > 1:
         size //= 2
-        cur = p2.compress(cur[0::2], cur[1::2])
+        cur = p2.compress_layer(cur)
         if size in by_height:
             cur = p2.compress(cur, _hash_layer(by_height[size]))
         layers.append(cur)

@@ -5,9 +5,10 @@ Three forms of the same permutation:
 * ``permute_ints``: Python ints, for the host transcript (one state at a time);
 * ``*_plain``: plain torch on any device, the reference the kernels are held
   against (the CPU tests and ``chip_smoke.py``'s comparison phase);
-* ``permute`` / ``hash_matrix_rows`` / ``compress``: the entry points.  On a
-  CUDA tensor they launch the hand-written kernels of ``poseidon2_cuda``
-  (and raise if those fail); on a CPU tensor they run the plain version.
+* ``permute`` / ``hash_matrix_rows`` / ``compress`` / ``compress_layer``: the
+  entry points.  On a CUDA tensor they launch the hand-written kernels of
+  ``poseidon2_cuda`` (and raise if those fail); on a CPU tensor they run the
+  plain version.
 
 The external MDS-light layer is the fixed integer matrix kron(I + J, M4)
 (entries <= 6, row sums 35), applied as one float64 product: every partial
@@ -54,6 +55,23 @@ def kernel_constants() -> tuple[np.ndarray, np.ndarray]:
     rc[4:17, 0] = RC_INTERNAL
     rc[17:21] = RC_EXT_SECOND
     return rc, np.array(DIAG, dtype=np.uint32)
+
+
+# Words at which arithmetic that reduces lazily is most likely to go wrong:
+# the ends of the field, its middle, and the powers of two of p = 2^31 - 2^24 + 1.
+EDGE_WORDS = (0, 1, _p - 1, _p - 2, (_p - 1) >> 1, (_p + 1) >> 1,
+              (1 << 24) - 1, 1 << 24, (1 << 31) - (1 << 24))
+
+
+def edge_matrix(width: int, seed: int, mixed_rows: int = 64) -> np.ndarray:
+    """(len(EDGE_WORDS) + mixed_rows, width) uint32: one row filled with each
+    edge word, then rows that mix edge words with random field elements."""
+    rng = np.random.default_rng(seed)
+    const = np.repeat(np.array(EDGE_WORDS, dtype=np.uint32)[:, None], width, axis=1)
+    rand = rng.integers(0, _p, size=(mixed_rows, width), dtype=np.int64).astype(np.uint32)
+    edge = np.array(EDGE_WORDS, dtype=np.uint32)[rng.integers(0, len(EDGE_WORDS), size=rand.shape)]
+    mixed = np.where(rng.random(rand.shape) < 0.5, edge, rand)
+    return np.concatenate([const, mixed], axis=0)
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +194,19 @@ def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     if left.is_cuda:
         from . import poseidon2_cuda
 
-        return poseidon2_cuda.compress(torch.cat([left, right], dim=1))
+        return poseidon2_cuda.compress(left, right)
     return compress_plain(left, right)
+
+
+def compress_layer(layer: torch.Tensor) -> torch.Tensor:
+    """One Merkle level: a contiguous (n, 8) layer, n even -> (n/2, 8), digest
+    i from rows 2i and 2i + 1.  On a CUDA tensor the kernel reads the pairs
+    from the layer's own memory: no slice and no copy."""
+    if layer.is_cuda:
+        from . import poseidon2_cuda
+
+        return poseidon2_cuda.compress_layer(layer)
+    return compress_plain(layer[0::2], layer[1::2])
 
 
 def hash_flat(values: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ checked with ``cudaGetLastError`` and a failure raises.  Nothing here falls
 back to the plain torch versions in ``poseidon2``.
 
 ``LAUNCHES`` counts launches per kernel, so a run can show that a path went
-through the kernels.
+through the kernels.  ``sass_counts`` reports how many machine instructions
+each built kernel has (the kernels are bound by integer issue slots, so that
+count is what a redesign moves); ``use_source`` points the bindings at
+another version of the source, to compare two on one card.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -49,6 +53,14 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def use_source(source) -> None:
+    """Build and bind the kernels from ``source`` from now on."""
+    global SOURCE, _LIB
+    SOURCE = Path(source).resolve()
+    _LIB = None
+    _CONSTANTS_ON.clear()
+
+
 def build() -> Path:
     """Compile the kernels (once per source version); returns the library path.
 
@@ -70,6 +82,42 @@ def build() -> Path:
     return lib
 
 
+_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_]*)")
+_KERNEL_NAMES = (
+    ("hash_rows_kernel", "hash_rows_kernel"),
+    ("permute_kernelILi8E", "permute_kernel<8>"),
+    ("permute_kernelILi16E", "permute_kernel<16>"),
+)
+
+
+def sass_counts(lib: Path | None = None) -> dict | None:
+    """Machine instructions of each kernel in the built library, from
+    ``cuobjdump -sass``: ``{kernel: {"total": n, "by_op": {opcode: n}}}``
+    (``NOP`` padding left out; a loop's body counts once).  None where the
+    toolkit has no ``cuobjdump``: this is a report, nothing depends on it."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    proc = subprocess.run([str(tool), "-sass", str(lib or build())], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None
+    out: dict = {}
+    ops = None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = next((nice for key, nice in _KERNEL_NAMES if key in mangled), mangled)
+            ops = out.setdefault(name, {})
+            continue
+        m = _SASS_LINE.match(line)
+        if m and ops is not None and m.group(1) != "NOP":
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return {
+        k: {"total": sum(v.values()), "by_op": dict(sorted(v.items(), key=lambda kv: -kv[1]))}
+        for k, v in out.items()
+    }
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -79,7 +127,7 @@ def _lib():
         lib.zkm_p2_error_string.restype = ctypes.c_char_p
         lib.zkm_p2_set_constants.argtypes = [ptr, ptr]
         lib.zkm_p2_hash_rows.argtypes = [ptr, i64, i64, ptr, ptr]
-        lib.zkm_p2_compress.argtypes = [ptr, i64, ptr, ptr]
+        lib.zkm_p2_compress.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
         lib.zkm_p2_permute.argtypes = [ptr, i64, ptr, ptr]
         for fn in (lib.zkm_p2_set_constants, lib.zkm_p2_hash_rows,
                    lib.zkm_p2_compress, lib.zkm_p2_permute):
@@ -116,33 +164,57 @@ def _validated(t: torch.Tensor, width: int | None, what: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(name: str, fn, inp: torch.Tensor, out: torch.Tensor, *extra):
-    if inp.shape[0] == 0:
+def _launch(name: str, fn: str, out: torch.Tensor, *args):
+    """Launch ``fn(*args, out, stream)`` on ``out``'s device, one row of
+    ``out`` per thread; counts the launch."""
+    if out.shape[0] == 0:
         return out
-    lib = _ready(inp.device)
-    stream = torch.cuda.current_stream(inp.device).cuda_stream
-    err = getattr(lib, fn)(inp.data_ptr(), inp.shape[0], *extra, out.data_ptr(), stream)
-    _check(lib, err, name)
+    lib = _ready(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _check(lib, getattr(lib, fn)(*args, out.data_ptr(), stream), name)
     LAUNCHES[name] += 1
     return out
+
+
+def _digests(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n, p2.OUT), dtype=torch.int32, device=like.device)
 
 
 def hash_rows(mat: torch.Tensor) -> torch.Tensor:
     """Sponge digest of every row: (n, w) int32 -> (n, 8)."""
     mat = _validated(mat, None, "hash_rows")
-    out = torch.empty((mat.shape[0], p2.OUT), dtype=torch.int32, device=mat.device)
-    return _launch("poseidon2_hash_rows", "zkm_p2_hash_rows", mat, out, mat.shape[1])
+    n, w = mat.shape
+    return _launch("poseidon2_hash_rows", "zkm_p2_hash_rows", _digests(n, mat), mat.data_ptr(), n, w)
 
 
-def compress(pairs: torch.Tensor) -> torch.Tensor:
-    """2-to-1 compression of (left || right) rows: (n, 16) -> (n, 8)."""
-    pairs = _validated(pairs, p2.WIDTH, "compress")
-    out = torch.empty((pairs.shape[0], p2.OUT), dtype=torch.int32, device=pairs.device)
-    return _launch("poseidon2_compress", "zkm_p2_compress", pairs, out)
+def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """2-to-1 compression of row i of ``left`` with row i of ``right``:
+    (n, 8) x 2 -> (n, 8).  The kernel reads both where they lie."""
+    left = _validated(left, p2.OUT, "compress")
+    right = _validated(right, p2.OUT, "compress")
+    if left.shape != right.shape or left.device != right.device:
+        raise ValueError(f"poseidon2 compress: {tuple(left.shape)} on {left.device} "
+                         f"against {tuple(right.shape)} on {right.device}")
+    n = left.shape[0]
+    return _launch("poseidon2_compress", "zkm_p2_compress", _digests(n, left),
+                   left.data_ptr(), right.data_ptr(), p2.OUT, n)
+
+
+def compress_layer(layer: torch.Tensor) -> torch.Tensor:
+    """One Merkle level: (n, 8), n even -> (n/2, 8), digest i from rows 2i
+    and 2i + 1, read from the layer's own memory (a contiguous layer is
+    already the (n/2, 16) matrix of pairs)."""
+    layer = _validated(layer, p2.OUT, "compress_layer")
+    if layer.shape[0] % 2:
+        raise ValueError(f"poseidon2 compress_layer: odd number of rows {layer.shape[0]}")
+    n = layer.shape[0] // 2
+    base = layer.data_ptr()
+    return _launch("poseidon2_compress", "zkm_p2_compress", _digests(n, layer),
+                   base, base + 4 * p2.OUT, p2.WIDTH, n)
 
 
 def permute(states: torch.Tensor) -> torch.Tensor:
     """Full permutation: (n, 16) -> (n, 16)."""
     states = _validated(states, p2.WIDTH, "permute")
-    out = torch.empty_like(states)
-    return _launch("poseidon2_permute", "zkm_p2_permute", states, out)
+    return _launch("poseidon2_permute", "zkm_p2_permute", torch.empty_like(states),
+                   states.data_ptr(), states.shape[0])
