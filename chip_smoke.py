@@ -399,6 +399,8 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     sass = poseidon2_cuda.sass_counts(lib)
+    if sass:  # per kernel: all machine instructions, and the twelve commonest opcodes
+        sass = {k: {"total": v["total"], "by_op": dict(list(v["by_op"].items())[:12])} for k, v in sass.items()}
     print("sass: " + (json.dumps(sass) if sass else "cuobjdump not found, instructions not counted"), flush=True)
 
     machine = build_machine()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare versions of the Poseidon2 CUDA source on one card, in one process.
 
-    python3 scripts/bench_poseidon2_sources.py [SOURCE.cu ...] [--out FILE]
+    python3 scripts/bench_poseidon2_sources.py [SOURCE.cu ...] [--out FILE] [--sass-dir DIR]
 
 Each source (default: the package's own ``csrc/poseidon2.cu``) must export
 the C interface that ``zkmips_tpu_torch/ops/poseidon2_cuda.py`` binds.  For
@@ -12,7 +12,9 @@ and times them at the prover's shapes: ``hash_rows`` at (2^21, 85),
 ``compress_layer`` at 2^20 pairs, ``permute`` at 2^18 states.  The sources
 are timed in turns, forwards then backwards, so that a drifting clock shows
 as a difference between a source's two times.  One JSON line per source,
-also appended to ``--out`` (default ``chiprun_out/poseidon2_sources.jsonl``).
+also appended to ``--out`` (default ``chiprun_out/poseidon2_sources.jsonl``);
+``--sass-dir`` keeps each source's whole disassembly there.  All sources are
+compiled at once, one ``nvcc`` each.
 
 To compare the working tree with an earlier commit, extract that commit's
 source first:  ``git show REV:zkmips_tpu_torch/csrc/poseidon2.cu > build/REV.cu``.
@@ -24,6 +26,8 @@ import argparse
 import json
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +54,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", default=[str(k.SOURCE)])
     ap.add_argument("--out", default="chiprun_out/poseidon2_sources.jsonl")
+    ap.add_argument("--sass-dir", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_poseidon2_sources: no CUDA device is available", file=sys.stderr)
@@ -78,13 +83,19 @@ def main() -> int:
 
     results = {}
     sources = [Path(s) for s in args.sources]
-    for src in sources:
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(k.build, sources))
+    print(f"built {len(sources)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
+    for src, lib in zip(sources, libs):
         k.use_source(src)
-        lib = k.build()
         rec = results[str(src)] = {"source": str(src), "card": card, "ms": {}}
         rec["ptxas"] = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
                         if "registers" in ln or "spill" in ln]
         rec["sass"] = k.sass_counts(lib)
+        if args.sass_dir:
+            Path(args.sass_dir).mkdir(parents=True, exist_ok=True)
+            (Path(args.sass_dir) / f"{src.stem}.sass").write_text(k.disassemble(lib) or "")
         bad = [f"hash_rows {tuple(m.shape)}" for m, want in zip(hash_cases, hash_want)
                if not torch.equal(k.hash_rows(m), want)]
         got = k.permute(states)

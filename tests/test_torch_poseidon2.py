@@ -38,6 +38,18 @@ def test_constants_are_the_references():
     assert tp.DIAG == jp.DIAG.tolist()
 
 
+def test_diagonal_is_the_one_the_kernels_are_written_for():
+    """The CUDA internal round has no table: it computes lane i times
+    [-2, 1, 2, 1/2, 3, 4, -1/2, -3, -4, 1/2^8, 1/8, 1/2^24, -1/2^8, -1/8,
+    -1/16, -1/2^24] by additions and shifts."""
+    p = jf.P
+    inv = lambda k: pow(2, -k, p)
+    want = [-2, 1, 2, inv(1), 3, 4, -inv(1), -3, -4, inv(8), inv(3), inv(24), -inv(8), -inv(3), -inv(4), -inv(24)]
+    assert tp._DIAG_CANON == [v % p for v in want]
+    assert tp.DIAG == [int(v) for v in jf.to_monty(np.array(tp._DIAG_CANON, dtype=np.uint32))]
+    assert tp.kernel_constants().shape == (21, 16)
+
+
 @pytest.mark.parametrize("w", WIDTHS)
 def test_hash_rows(w):
     m = rand_fp(1, (1024, w))

@@ -7,17 +7,32 @@
 //   zkm_p2_permute    <- the full-width permutation the FRI proof-of-work
 //                        grind needs (zkmips_tpu/stark/pcs.py _grind_device).
 //
-// Bound: integer multiplies.  One permutation is 490 Montgomery products
-// (8 external rounds x 16 lanes x 2 for the cube, 13 internal rounds x
-// (2 + 16)), each three 32-bit multiplies; the bytes moved (the matrix read
-// once, the digests written once) are far below that on an H100.  Design: one
-// thread per row, the 16-word state in registers for the whole sponge, round
-// constants and the diagonal in __constant__ memory (every thread reads the
-// same word at the same time, which the constant cache broadcasts).  Rows
-// are read straight from the row-major matrix, which is uncoalesced; staging
-// row tiles through shared memory is left for later work.
+// Bound: integer issue slots, not bytes.  The sponge over (2^21, 85) rows, the
+// compression of 2^20 contiguous pairs and the permutation of 2^18 states run
+// at the same rate per permutation although their memory patterns differ, so
+// the loads hide behind the arithmetic.  An SM issues 32-bit integer work on
+// two pipes of 64 lanes each: the multiplier (IMAD, and at half rate
+// IMAD.WIDE and IMAD.HI) and the ALU (IADD3, VIADDMNMX, LOP3, SHF); ptxas
+// spreads the plain additions over both.  The only lever is fewer
+// instructions per permutation, and what the design does about it:
+//   * one thread per row, the 16-word state in registers for the whole
+//     sponge: no shuffles, no shared memory; round constants in __constant__
+//     memory (every thread reads the same word, which the cache broadcasts);
+//   * a modular addition is an add and one VIADDMNMX (add and minimum fused),
+//     written as min(r, r - P), not compare and select;
+//   * a Montgomery product is a wide multiply, a multiply, a multiply-high,
+//     a subtract and one VIADDMNMX; the square inside the s-box skips the
+//     correction;
+//   * the internal round's diagonal costs no multiply: small integers are
+//     additions, the powers 2^-k shifts.
+// Sums kept unreduced in 64 bits and folded once per output were measured
+// and dropped: fewer instructions, but wide multiply-adds at half rate.
+// scripts/bench_poseidon2_sources.py compares versions of this file on one
+// card; scripts/int_pipe_microbench.py measures the pipes.
 //
-// Field elements are Montgomery uint32 (R = 2^32), p = 2^31 - 2^24 + 1.
+// Field elements are Montgomery uint32 (R = 2^32), P = 2^31 - 2^24 + 1.  Every
+// word that enters or leaves a function below is canonical (< P) unless its
+// comment says otherwise.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,29 +43,51 @@ constexpr uint32_t P = 0x7F000001u;
 constexpr uint32_t MU = 0x81000001u;  // P^{-1} mod 2^32
 constexpr int WIDTH = 16;
 constexpr int RATE = 8;
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
 
 __constant__ uint32_t c_rc[21][WIDTH];  // 4 external, 13 internal (lane 0), 4 external
-__constant__ uint32_t c_diag[WIDTH];
 
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
-  const uint64_t x = static_cast<uint64_t>(a) * b;
-  const uint32_t m = static_cast<uint32_t>(x) * MU;
-  const uint64_t u = static_cast<uint64_t>(m) * P;
-  // x - u is a multiple of 2^32, so only the high words matter
-  const uint32_t hi = static_cast<uint32_t>(x >> 32);
-  const uint32_t uhi = static_cast<uint32_t>(u >> 32);
-  const uint32_t r = hi - uhi;
-  return hi < uhi ? r + P : r;
-}
+// The canonical representative of r < 2P: r - P wraps above r when r < P.
+__device__ __forceinline__ uint32_t canon(uint32_t r) { return min(r, r - P); }
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t r = a + b;  // < 2p < 2^32
-  return r >= P ? r - P : r;
+  return canon(a + b);  // a + b < 2P < 2^32
 }
 
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
+  const uint32_t r = a - b;  // in (-P, P), wrapped
+  return min(r, r + P);
+}
+
+// Montgomery product without the final correction, for a * b < 2^32 * P.
+// x - m * P is a multiple of 2^32, so only the high words matter, and of
+// m * P only its high word (below P) is needed.  The result is congruent to
+// a * b / 2^32 and lies in [1, P + a * b / 2^32], below 2P.
+__device__ __forceinline__ uint32_t mont_mul_lazy(uint32_t a, uint32_t b) {
+  const uint64_t x = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(x) * MU;
+  return static_cast<uint32_t>(x >> 32) - __umulhi(m, P) + P;
+}
+
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
+  return canon(mont_mul_lazy(a, b));
+}
+
+// x^3.  The uncorrected square is below P + P^2 / 2^32 < 1.5P, so its product
+// with x is below 1.5 P^2 < 2^32 * P.  The square of an uncorrected word would
+// not be safe (4 P^2 > 2^32 * P): x itself must be canonical.
 __device__ __forceinline__ uint32_t sbox(uint32_t x) {
-  return mont_mul(mont_mul(x, x), x);
+  return mont_mul(mont_mul_lazy(x, x), x);
+}
+
+// x / 2^K, 1 <= K <= 24.  P = 1 (mod 2^24), so with m = -x mod 2^K the sum
+// x + m * P = (x + m) + m * 2^31 - m * 2^24 is a multiple of 2^K, and so is
+// each of its three terms; m < 2^K, so the quotient is below P and no term
+// leaves 32 bits.
+template <int K>
+__device__ __forceinline__ uint32_t div_pow2(uint32_t x) {
+  const uint32_t m = (0u - x) & ((1u << K) - 1u);
+  return ((x + m) >> K) + (m << (31 - K)) - (m << (24 - K));
 }
 
 // MDS-light layer: M4 on each 4-lane group (the reference's add chain), then
@@ -83,13 +120,33 @@ __device__ __forceinline__ void external_round(uint32_t s[WIDTH], int r) {
   external_linear(s);
 }
 
+// s-box on lane 0, then s[i] = d[i] * s[i] + sum(s) with Plonky3's KoalaBear
+// diagonal d = [-2, 1, 2, 1/2, 3, 4, -1/2, -3, -4, 1/2^8, 1/8, 1/2^24, -1/2^8,
+// -1/8, -1/16, -1/2^24].  A Montgomery word times a canonical constant is the
+// Montgomery word of the product, so no lane needs a multiply.
 __device__ __forceinline__ void internal_round(uint32_t s[WIDTH], int r) {
   s[0] = sbox(add_mod(s[0], c_rc[r][0]));
   uint32_t total = s[0];
 #pragma unroll
   for (int i = 1; i < WIDTH; ++i) total = add_mod(total, s[i]);
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = add_mod(mont_mul(s[i], c_diag[i]), total);
+  const uint32_t d0 = add_mod(s[0], s[0]), d2 = add_mod(s[2], s[2]), d4 = add_mod(s[4], s[4]);
+  const uint32_t d5 = add_mod(s[5], s[5]), d7 = add_mod(s[7], s[7]), d8 = add_mod(s[8], s[8]);
+  s[0] = sub_mod(total, d0);
+  s[1] = add_mod(total, s[1]);
+  s[2] = add_mod(total, d2);
+  s[3] = add_mod(total, div_pow2<1>(s[3]));
+  s[4] = add_mod(total, add_mod(d4, s[4]));
+  s[5] = add_mod(total, add_mod(d5, d5));
+  s[6] = sub_mod(total, div_pow2<1>(s[6]));
+  s[7] = sub_mod(total, add_mod(d7, s[7]));
+  s[8] = sub_mod(total, add_mod(d8, d8));
+  s[9] = add_mod(total, div_pow2<8>(s[9]));
+  s[10] = add_mod(total, div_pow2<3>(s[10]));
+  s[11] = add_mod(total, div_pow2<24>(s[11]));
+  s[12] = sub_mod(total, div_pow2<8>(s[12]));
+  s[13] = sub_mod(total, div_pow2<3>(s[13]));
+  s[14] = sub_mod(total, div_pow2<4>(s[14]));
+  s[15] = sub_mod(total, div_pow2<24>(s[15]));
 }
 
 __device__ void permute(uint32_t s[WIDTH]) {
@@ -159,12 +216,11 @@ const char* zkm_p2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// rc: (21, 16) Montgomery round constants, diag: (16,), host pointers.
-// Copies them into this device's constant memory; returns a cudaError_t.
-int zkm_p2_set_constants(const uint32_t* rc, const uint32_t* diag) {
-  cudaError_t e = cudaMemcpyToSymbol(c_rc, rc, sizeof(uint32_t) * 21 * WIDTH);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaMemcpyToSymbol(c_diag, diag, sizeof(uint32_t) * WIDTH));
+// rc: (21, 16) Montgomery round constants, a host pointer.  Copies them into
+// this device's constant memory; returns a cudaError_t.  (The diagonal of the
+// internal rounds is not data here: internal_round is written for it.)
+int zkm_p2_set_constants(const uint32_t* rc) {
+  return static_cast<int>(cudaMemcpyToSymbol(c_rc, rc, sizeof(uint32_t) * 21 * WIDTH));
 }
 
 // Device pointers; n >= 1.  Each returns cudaGetLastError() after the launch.

@@ -47,14 +47,15 @@ EXT_MATRIX = np.kron(np.eye(4, dtype=np.int64) + np.ones((4, 4), dtype=np.int64)
 _EXT_ROWS = [[int(c) for c in row] for row in EXT_MATRIX]
 
 
-def kernel_constants() -> tuple[np.ndarray, np.ndarray]:
-    """(21, 16) round constants (internal rounds on lane 0, zeros elsewhere)
-    and the (16,) diagonal, Montgomery uint32, for the CUDA kernels."""
+def kernel_constants() -> np.ndarray:
+    """(21, 16) round constants (internal rounds on lane 0, zeros elsewhere),
+    Montgomery uint32, for the CUDA kernels.  The diagonal is not passed: the
+    kernels' internal round is written for ``_DIAG_CANON`` lane by lane."""
     rc = np.zeros((21, 16), dtype=np.uint32)
     rc[0:4] = RC_EXT_FIRST
     rc[4:17, 0] = RC_INTERNAL
     rc[17:21] = RC_EXT_SECOND
-    return rc, np.array(DIAG, dtype=np.uint32)
+    return rc
 
 
 # Words at which arithmetic that reduces lazily is most likely to go wrong:

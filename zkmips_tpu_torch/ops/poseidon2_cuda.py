@@ -61,28 +61,29 @@ def use_source(source) -> None:
     _CONSTANTS_ON.clear()
 
 
-def build() -> Path:
+def build(source: Path | None = None) -> Path:
     """Compile the kernels (once per source version); returns the library path.
 
     The compiler's output (``-Xptxas=-v``: registers and spills per kernel)
     is kept beside the library as ``<name>.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source = Path(source or SOURCE)
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libzkm_poseidon2-{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
 
-_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_]*)")
+_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)")
 _KERNEL_NAMES = (
     ("hash_rows_kernel", "hash_rows_kernel"),
     ("permute_kernelILi8E", "permute_kernel<8>"),
@@ -90,20 +91,28 @@ _KERNEL_NAMES = (
 )
 
 
-def sass_counts(lib: Path | None = None) -> dict | None:
-    """Machine instructions of each kernel in the built library, from
-    ``cuobjdump -sass``: ``{kernel: {"total": n, "by_op": {opcode: n}}}``
-    (``NOP`` padding left out; a loop's body counts once).  None where the
-    toolkit has no ``cuobjdump``: this is a report, nothing depends on it."""
+def disassemble(lib: Path | None = None) -> str | None:
+    """``cuobjdump -sass`` of the built library (or any CUDA binary); None
+    where the toolkit has no ``cuobjdump`` or it fails."""
     tool = Path(_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
     proc = subprocess.run([str(tool), "-sass", str(lib or build())], capture_output=True, text=True)
-    if proc.returncode != 0:
+    return proc.stdout if proc.returncode == 0 else None
+
+
+def sass_counts(lib: Path | None = None) -> dict | None:
+    """Machine instructions of each kernel in the built library, from its
+    disassembly: ``{kernel: {"total": n, "by_op": {opcode: n}}}``, opcodes
+    with their modifiers (``IMAD.WIDE.U32`` is not ``IMAD``); ``NOP`` padding
+    left out; a loop's body counts once.  None where there is no
+    disassembly: this is a report, nothing depends on it."""
+    text = disassemble(lib)
+    if text is None:
         return None
     out: dict = {}
     ops = None
-    for line in proc.stdout.splitlines():
+    for line in text.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
             name = next((nice for key, nice in _KERNEL_NAMES if key in mangled), mangled)
@@ -125,7 +134,7 @@ def _lib():
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.zkm_p2_error_string.argtypes = [ctypes.c_int]
         lib.zkm_p2_error_string.restype = ctypes.c_char_p
-        lib.zkm_p2_set_constants.argtypes = [ptr, ptr]
+        lib.zkm_p2_set_constants.argtypes = [ptr]
         lib.zkm_p2_hash_rows.argtypes = [ptr, i64, i64, ptr, ptr]
         lib.zkm_p2_compress.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
         lib.zkm_p2_permute.argtypes = [ptr, i64, ptr, ptr]
@@ -147,9 +156,9 @@ def _ready(device: torch.device):
     lib = _lib()
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _CONSTANTS_ON:
-        rc, diag = p2.kernel_constants()
+        rc = p2.kernel_constants()
         with torch.cuda.device(idx):
-            _check(lib, lib.zkm_p2_set_constants(rc.ctypes.data, diag.ctypes.data), "set_constants")
+            _check(lib, lib.zkm_p2_set_constants(rc.ctypes.data), "set_constants")
         _CONSTANTS_ON.add(idx)
     return lib
 
