@@ -12,7 +12,7 @@ and times them at the prover's shapes: ``hash_rows`` at (2^21, 85),
 ``compress_layer`` at 2^20 pairs, ``permute`` at 2^18 states.  The sources
 are timed in turns, forwards then backwards, so that a drifting clock shows
 as a difference between a source's two times.  One JSON line per source,
-also appended to ``--out`` (default ``chiprun_out/poseidon2_sources.jsonl``);
+also appended to ``--out`` (default ``build/poseidon2_sources.jsonl``);
 ``--sass-dir`` keeps each source's whole disassembly there.  All sources are
 compiled at once, one ``nvcc`` each.
 
@@ -53,7 +53,7 @@ def cuda_ms(fn, reps: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", default=[str(k.SOURCE)])
-    ap.add_argument("--out", default="chiprun_out/poseidon2_sources.jsonl")
+    ap.add_argument("--out", default="build/poseidon2_sources.jsonl")
     ap.add_argument("--sass-dir", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
