@@ -44,7 +44,10 @@ H100_FP32_OPS_PER_S = 67e12  # CUDA-core float32 rate, the table's non-tensor en
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper): the rate at which
 # the card can issue the 32-bit integer multiplies the kernels are made of
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-MULS_PER_PERM = 490 * 3  # Montgomery products per permutation x 32-bit multiplies each
+# Montgomery products a permutation needs, x 32-bit multiplies each: the
+# s-box x^3 is two products, on 16 lanes in each of 8 external rounds and on
+# lane 0 in each of 13 internal rounds; the internal diagonal needs none
+MULS_PER_PERM = (8 * 16 * 2 + 13 * 2) * 3
 
 # --- the workload -------------------------------------------------------------
 #
@@ -284,6 +287,8 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
     check("poseidon2_compress", k.compress(*halves), p2.compress_plain(*halves), "edge vectors")
     check("poseidon2_compress", k.compress_layer(edge.view(-1, 8)), p2.compress_plain(*halves),
           "edge vectors, in place")
+    check("poseidon2_compress", k.compress(edge[:, :8], edge[:, 8:]), p2.compress_plain(*halves),
+          "edge vectors, halves 16 words apart")
 
     for w in (1, 8, 13, 64, 88):
         m = rand_field(rng, (1024, w), dev)

@@ -225,3 +225,7 @@ def test_compress_edge_vectors_kernel(cuda):
     want = jp.compress(l, r)
     assert np.array_equal(N(tp.compress(T(l, cuda), T(r, cuda))), want)
     assert np.array_equal(N(tp.compress_layer(T(s.reshape(-1, 8), cuda))), want)
+    # halves read where they lie (rows 16 words apart), and a layout that must be copied
+    st = T(s, cuda)
+    assert np.array_equal(N(tp.compress(st[:, :8], st[:, 8:])), want)
+    assert np.array_equal(N(tp.compress(T(l.T.copy(), cuda).T, st[:, 8:])), want)

@@ -10,8 +10,9 @@ back to the plain torch versions in ``poseidon2``.
 ``LAUNCHES`` counts launches per kernel, so a run can show that a path went
 through the kernels.  ``sass_counts`` reports how many machine instructions
 each built kernel has (the kernels are bound by integer issue slots, so that
-count is what a redesign moves); ``use_source`` points the bindings at
-another version of the source, to compare two on one card.
+count is what a redesign moves).  ``build`` and ``load`` take any version of
+the source or library, so a script can bind two and compare them on one card
+without touching the handle the wrappers here use.
 """
 
 from __future__ import annotations
@@ -51,14 +52,6 @@ def _nvcc() -> str:
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def use_source(source) -> None:
-    """Build and bind the kernels from ``source`` from now on."""
-    global SOURCE, _LIB
-    SOURCE = Path(source).resolve()
-    _LIB = None
-    _CONSTANTS_ON.clear()
 
 
 def build(source: Path | None = None) -> Path:
@@ -127,21 +120,27 @@ def sass_counts(lib: Path | None = None) -> dict | None:
     }
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library's C interface, typed.  Its constant memory is not yet
+    loaded: call ``zkm_p2_set_constants`` once per device."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.zkm_p2_error_string.argtypes = [ctypes.c_int]
+    lib.zkm_p2_error_string.restype = ctypes.c_char_p
+    lib.zkm_p2_set_constants.argtypes = [ptr]
+    lib.zkm_p2_hash_rows.argtypes = [ptr, i64, i64, ptr, ptr]
+    lib.zkm_p2_compress.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
+    lib.zkm_p2_permute.argtypes = [ptr, i64, ptr, ptr]
+    for fn in (lib.zkm_p2_set_constants, lib.zkm_p2_hash_rows,
+               lib.zkm_p2_compress, lib.zkm_p2_permute):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.zkm_p2_error_string.argtypes = [ctypes.c_int]
-        lib.zkm_p2_error_string.restype = ctypes.c_char_p
-        lib.zkm_p2_set_constants.argtypes = [ptr]
-        lib.zkm_p2_hash_rows.argtypes = [ptr, i64, i64, ptr, ptr]
-        lib.zkm_p2_compress.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
-        lib.zkm_p2_permute.argtypes = [ptr, i64, ptr, ptr]
-        for fn in (lib.zkm_p2_set_constants, lib.zkm_p2_hash_rows,
-                   lib.zkm_p2_compress, lib.zkm_p2_permute):
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
 
 
@@ -164,13 +163,19 @@ def _ready(device: torch.device):
 
 
 def _validated(t: torch.Tensor, width: int | None, what: str) -> torch.Tensor:
+    """``t`` after the checks every wrapper makes, contiguous (a copy if it
+    was not)."""
+    return _checked(t, width, what).contiguous()
+
+
+def _checked(t: torch.Tensor, width: int | None, what: str) -> torch.Tensor:
     if not t.is_cuda:
         raise ValueError(f"poseidon2 {what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise TypeError(f"poseidon2 {what}: expected torch.int32, got {t.dtype}")
     if t.dim() != 2 or (width is not None and t.shape[1] != width):
         raise ValueError(f"poseidon2 {what}: bad shape {tuple(t.shape)}")
-    return t.contiguous()
+    return t
 
 
 def _launch(name: str, fn: str, out: torch.Tensor, *args):
@@ -198,15 +203,19 @@ def hash_rows(mat: torch.Tensor) -> torch.Tensor:
 
 def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """2-to-1 compression of row i of ``left`` with row i of ``right``:
-    (n, 8) x 2 -> (n, 8).  The kernel reads both where they lie."""
-    left = _validated(left, p2.OUT, "compress")
-    right = _validated(right, p2.OUT, "compress")
+    (n, 8) x 2 -> (n, 8).  The kernel reads both where they lie when their
+    rows are unbroken and equally far apart (two contiguous matrices, or the
+    even and odd rows of one); any other layout is copied first."""
+    left = _checked(left, p2.OUT, "compress")
+    right = _checked(right, p2.OUT, "compress")
     if left.shape != right.shape or left.device != right.device:
         raise ValueError(f"poseidon2 compress: {tuple(left.shape)} on {left.device} "
                          f"against {tuple(right.shape)} on {right.device}")
     n = left.shape[0]
+    if left.stride() != right.stride() or left.stride(1) != 1:
+        left, right = left.contiguous(), right.contiguous()
     return _launch("poseidon2_compress", "zkm_p2_compress", _digests(n, left),
-                   left.data_ptr(), right.data_ptr(), p2.OUT, n)
+                   left.data_ptr(), right.data_ptr(), left.stride(0), n)
 
 
 def compress_layer(layer: torch.Tensor) -> torch.Tensor:
