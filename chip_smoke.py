@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--log-rows K] [--only-kernels]
+    python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--only-kernels]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -17,10 +17,20 @@
    and checks it with ``verify_shard``, then requires a tampered proof to
    be rejected; the shard's chips have the widths of the largest chips of a
    2^20-cycle core shard (Cpu-, AddSub- and Byte-shaped, see below), with
-   traces made from ``--seed``;
+   traces made from ``--seed``, 2^``--log-rows`` rows (default 2^18);
 5. proves a small shard of the same chips on the card and on the CPU and
    requires the two proofs to be equal field by field;
-6. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
+6. the MIPS phase, at full size: assembles the fib guest (``--fib-iters``
+   iterations, default 200,000, about 1.2 M cycles), builds the native trace
+   executor from ``csrc/trace_executor.c`` and runs the guest in 2^20-cycle
+   shards, proves every shard with ``MipsMachine.prove`` at the core config
+   on the card (fifteen-chip minimal machine, fixed shapes), and checks the
+   proofs, the shard chain and the septic digest sum with
+   ``MipsMachine.verify``; a flipped word of a global digest and two
+   swapped proofs must be rejected; a small fib proved on the card and on
+   the CPU must give equal proofs.  The kernels' launch counts of the
+   ``kernels`` line are those of this phase's ``prove``;
+7. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
    and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -65,6 +75,7 @@ BYTE_OPS = [
     lambda x, y: np.zeros_like(x),
 ]
 N_BYTE_OPS = len(BYTE_OPS)
+MIPS_SHARD_CYCLES = 1 << 20  # the shard size of the MIPS phase
 CPU_LOOKUPS = 21  # the reference Cpu chip's lookup count: 12 extension permutation columns
 CPU_PAIRS = 11
 
@@ -374,10 +385,129 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def fib_program(n_iters: int):
+    """The headline fib guest: 6 cycles an iteration, 10 around the loop."""
+    from zkmips_tpu_torch.executor import Instruction, Opcode as O, Register as R, asm
+
+    body = [
+        *asm.li(R.T0, 0), *asm.li(R.T1, 1), *asm.li(R.T2, n_iters),
+        asm.alu(O.ADD, R.T3, R.T0, R.T1),
+        Instruction(O.ADD, R.T0, R.T1, 0, False, True),
+        Instruction(O.ADD, R.T1, R.T3, 0, False, True),
+        asm.addi(R.T2, R.T2, -1 & 0xFFFFFFFF),
+        asm.branch(O.BGTZ, R.T2, 0, -20),
+        asm.nop(),
+    ]
+    return asm.prog(body + asm.halt_sequence())
+
+
+def expect_rejected(machine, vk, proofs, program, what: str):
+    from zkmips_tpu_torch.stark.machine import VerificationError
+
+    try:
+        machine.verify(vk, proofs, program)
+    except VerificationError as e:
+        print(f"mips {what} rejected: {e}", flush=True)
+    else:
+        raise AssertionError(f"mips: {what} was accepted")
+
+
+def mips_phase(args, dev, card: str) -> dict:
+    """Execute, prove and verify the fib guest; returns the kernels' launch
+    counts over ``MipsMachine.prove``."""
+    import copy
+
+    from zkmips_tpu_torch import convert
+    from zkmips_tpu_torch.executor import execute_for_proving, native_trace
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.utils import logger
+
+    t0 = time.perf_counter()
+    lib = native_trace.library()
+    print(f"mips build: trace executor in {time.perf_counter() - t0:.1f} s -> "
+          f"{lib.rsplit('/', 1)[-1]}", flush=True)
+    program = fib_program(args.fib_iters)
+    t0 = time.perf_counter()
+    records, info = execute_for_proving(program, shard_size=MIPS_SHARD_CYCLES)
+    exec_s = time.perf_counter() - t0
+    cycles = info["global_clk"]
+    print(f"mips executor: {cycles} cycles in {exec_s:.3f} s, {len(records)} shards of up to "
+          f"{MIPS_SHARD_CYCLES} cycles, Cpu rows {[len(r.cpu_events) for r in records]}", flush=True)
+    if len(records[0].cpu_events) != MIPS_SHARD_CYCLES or len(records) < 2:
+        raise AssertionError("the guest does not fill one shard and start a second")
+
+    machine = mips_machine(StarkConfig.core(), minimal=True)
+    t0 = time.perf_counter()
+    pk = machine.setup(program)
+    torch.cuda.synchronize()
+    print(f"mips setup: {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+
+    logger.configure(enabled=True, sync=True, echo=False)
+    logger.spans_reset()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    proofs = machine.prove(pk, records)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    logger.configure(enabled=False)
+    spans, rows = logger.spans_report(), logger.notes_report()
+    for proof in proofs:
+        shard = f"shard{int(proof.public_values[0])}"
+        chips = {n: [rows[f"{shard}/prove.trace_gen/rows.{n}"], o.log_degree]
+                 for n, o in zip(proof.chip_names, proof.opened)}
+        print(f"mips {shard} chips [rows, padded log-height]: " + json.dumps(chips), flush=True)
+        stages = {k.split("/", 1)[1]: round(v[0], 4) for k, v in spans.items() if k.startswith(shard + "/")}
+        print(f"mips {shard} stages: " + json.dumps(
+            {"card": card, "total_seconds": round(spans[shard][0], 4), "seconds": stages}), flush=True)
+    print(f"mips prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
+          f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"mips launches over prove: {launches} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    assert machine.verify(pk.vk, proofs, program)
+    print(f"mips verify: accepted {len(proofs)} shard proofs, the shard chain and the digest sum "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    bad = copy.copy(proofs)
+    bad[0] = copy.deepcopy(proofs[0])
+    gs = bad[0].opened[bad[0].chip_names.index("Global")].global_sum
+    gs[0] ^= 1
+    expect_rejected(machine, pk.vk, bad, program, "flipped word of a global digest")
+    expect_rejected(machine, pk.vk, [proofs[1], proofs[0], *proofs[2:]], program, "swapped proofs")
+    del proofs, bad, pk, records
+
+    # a small fib on the card and on the CPU must give the same proofs
+    t0 = time.perf_counter()
+    small = fib_program(300)  # 1810 cycles: two shards of up to 2^10
+
+    def prove_small(device):
+        recs, _ = execute_for_proving(small, shard_size=1 << 10)
+        spk = machine.setup(small, device=device)
+        return [convert.shard_proof_to_numpy(p) for p in machine.prove(spk, recs, device=device)]
+
+    on_card, on_cpu = prove_small(dev), prove_small("cpu")
+    sums = [o["global_sum"] for p in on_card for n, o in zip(p["chip_names"], p["opened"]) if n == "Global"]
+    if len(on_card) < 2 or len(sums) != len(on_card) or any(g is None for g in sums):
+        raise AssertionError("mips: the small fib did not give two shards with global sums")
+    if not _same(on_card, on_cpu):
+        raise AssertionError("mips: the card's proofs of the small fib differ from the CPU's")
+    print(f"mips small fib: card and CPU proofs of {len(on_card)} shards equal "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--log-rows", type=int, default=20, help="log2 rows of the Cpu/AddSub chips")
+    ap.add_argument("--log-rows", type=int, default=18,
+                    help="log2 rows of the synthetic shard's Cpu/AddSub-shaped chips")
+    ap.add_argument("--fib-iters", type=int, default=200_000,
+                    help="iterations of the MIPS phase's fib guest (6 cycles each)")
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after the kernel phase and its kernels line (exit code 0, no last line)")
     args = ap.parse_args()
@@ -442,11 +572,10 @@ def main() -> int:
     stages = {k: round(v[0], 4) for k, v in logger.spans_report().items()}
     print(f"prove_shard: {prove_s:.3f} s, peak device memory {peak_gb:.2f} GiB [{card}]", flush=True)
     print("stages: " + json.dumps({"card": card, "seconds": stages}), flush=True)
-    print(f"launches on the main path: {launches}", flush=True)
+    print(f"launches on the synthetic shard's path: {launches}", flush=True)
     for name, n in launches.items():
         if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-        records[name]["launches"] = n
+            raise AssertionError(f"kernel {name} was not launched on the synthetic shard's path")
 
     t0 = time.perf_counter()
     assert machine.verify_shard(pk.vk, proof)
@@ -468,6 +597,12 @@ def main() -> int:
     if not _same(small_proof(machine, small, small_pv, dev), small_proof(machine, small, small_pv, "cpu")):
         raise AssertionError("the card's proof of the small shard differs from the CPU's")
     print(f"small shard: card and CPU proofs equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del small, machine
+
+    for name, n in mips_phase(args, dev, card).items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the MIPS path")
+        records[name]["launches"] = n
 
     print_kernels(records)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,26 @@ def test_entry_points_raise_without_gpu():
         machine.prove_shard(pk, None, np.zeros(0, dtype=np.uint32))
 
 
+def test_mips_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    from zkmips_tpu_torch.executor import asm
+    from zkmips_tpu_torch.machine.machine import mips_machine, prove_program
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+
+    program = asm.prog(asm.halt_sequence())
+    machine = mips_machine(StarkConfig.test(), minimal=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.setup(program)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.prove(None, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.prove_record(None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prove_program(program, machine=machine)
+    assert machine.setup(program, device="cpu").device == torch.device("cpu")
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     from zkmips_tpu_torch.ops import poseidon2_cuda
 

@@ -119,16 +119,8 @@ def _port_machine(cfg, extra_range=0):
     return tm.StarkMachine(cfg, chips, num_public_values=1)
 
 
-def _to_reference_proof(d: dict) -> jm.ShardProof:
-    fp = d["fri_proof"]
-    fri = jpcs.FriProof(
-        fp["commit_roots"], fp["final_poly"], fp["pow_witness"],
-        [jpcs.QueryProof(q["input_openings"], [jpcs.CommitPhaseOpening(s, p) for s, p in q["commit_openings"]])
-         for q in fp["query_proofs"]],
-    )
-    opened = [jm.ChipOpenedValues(**o) for o in d["opened"]]
-    return jm.ShardProof(d["main_root"], d["perm_root"], d["quotient_root"], d["chip_names"],
-                         opened, fri, d["public_values"])
+def _to_reference_proof(tproof) -> jm.ShardProof:
+    return convert.shard_proof_to_reference(tproof, jm, jpcs)
 
 
 def _assert_same(a, b, path="proof"):
@@ -161,7 +153,7 @@ def test_proof_equals_reference_field_by_field(proofs):
     from zkmips_tpu.verifier import stark_codec
 
     _jmach, _jpk, jproof, _tmach, _tpk, tproof = proofs
-    converted = _to_reference_proof(convert.shard_proof_to_numpy(tproof))
+    converted = _to_reference_proof(tproof)
     _assert_same(converted, jproof)
     assert stark_codec.encode_core_proof([converted]) == stark_codec.encode_core_proof([jproof])
 
@@ -169,7 +161,7 @@ def test_proof_equals_reference_field_by_field(proofs):
 def test_reference_verifier_accepts_port_proof(proofs):
     jmach, jpk, _jproof, _tmach, tpk, tproof = proofs
     assert np.array_equal(N(tpk.vk.prep_root), jpk.vk.prep_root)
-    assert jmach.verify_shard(jpk.vk, _to_reference_proof(convert.shard_proof_to_numpy(tproof)))
+    assert jmach.verify_shard(jpk.vk, _to_reference_proof(tproof))
 
 
 def test_port_verifier(proofs):

@@ -10,10 +10,15 @@ The Montgomery reduction keeps to int64: ``m = lo * MU mod 2^32`` is formed by
 shift-adds (MU = 2^31 + 2^24 + 1 is sparse), never by an int64 multiply
 that could overflow.  The ``*64`` helpers return int64 and also accept plain
 Python ints, which the host-side transcript code uses.
+
+The host-side trace fills of the MIPS chips and the septic curve work on
+numpy arrays: every function here also takes numpy ``uint32`` arrays and
+scalars (the same int64 arithmetic) and then returns numpy ``uint32``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 P = 0x7F000001  # 2^31 - 2^24 + 1
@@ -59,12 +64,23 @@ HALF = to_monty_int((P + 1) // 2)
 
 
 def _wide(x):
-    return x.to(torch.int64) if isinstance(x, torch.Tensor) else x
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    if isinstance(x, (np.ndarray, np.generic)):
+        return x.astype(np.int64)
+    return x
 
 
-def narrow(x: torch.Tensor) -> torch.Tensor:
-    """int64 field values -> int32 storage."""
-    return x.to(torch.int32)
+def narrow(x):
+    """int64 field values -> storage: int32 tensor, or numpy uint32."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return x.astype(np.uint32)
+
+
+def monty_const(x: int) -> np.uint32:
+    """Montgomery-form numpy scalar of a canonical Python int constant."""
+    return np.uint32(to_monty_int(x % P))
 
 
 def mul64(a, b):
@@ -123,7 +139,7 @@ def to_monty(x) -> torch.Tensor:
 def pow_const(a, e: int) -> torch.Tensor:
     """a ** e for a fixed exponent (square-and-multiply)."""
     if e == 0:
-        return torch.full_like(narrow(_wide(a)), MONTY_ONE)
+        return narrow(_wide(a) * 0 + MONTY_ONE)
     acc = None
     base = _wide(a)
     while e:

@@ -31,6 +31,9 @@ class BaseAir:
     def generate_preprocessed(self, program):
         return None
 
+    def generate_dependencies(self, record, output):
+        """Emit derived events (e.g. byte lookups) into ``output``."""
+
     def included(self, record) -> bool:
         return True
 
@@ -86,10 +89,11 @@ def padded_height(h: int, min_rows: int = 16) -> int:
     return max(min_rows, 1 << max(h - 1, 1).bit_length())
 
 
-def pad_to_power_of_two(trace: np.ndarray, min_rows: int = 16) -> np.ndarray:
-    """Zero-pad a host trace to ``padded_height`` rows."""
+def pad_to_power_of_two(trace: np.ndarray, min_rows: int = 16, fixed_rows: int | None = None) -> np.ndarray:
+    """Zero-pad a host trace to ``padded_height`` rows, or to ``fixed_rows``."""
     h = trace.shape[0]
-    target = padded_height(h, min_rows)
+    target = padded_height(h, min_rows) if fixed_rows is None else fixed_rows
+    assert h <= target
     if h == target:
         return trace
     out = np.zeros((target, trace.shape[1]), dtype=trace.dtype)

@@ -5,14 +5,14 @@ Shard transcript order (identical to the reference's):
   observe(vk: preprocessed root, prep heights)
   observe(public_values)
   observe(main root); sample perm challenges alpha_p, beta_p
-  observe(perm root); per chip: observe local cumsum (4 felts)
+  observe(perm root); per chip: observe local cumsum (4 felts),
+    and for global-scope chips the 14 septic digest felts
   sample alpha; observe(quotient root); sample zeta
   PCS open/verify (rounds: preprocessed, main, permutation, quotient)
 
 ``setup`` and ``prove_shard`` run on a CUDA device unless the caller passes
 another (``device="cpu"``); without a GPU they raise.  ``verify_shard`` is
-host-side and runs on the CPU.  Global-scope chips (a septic digest in the
-transcript) are not ported.
+host-side and runs on the CPU.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ class ChipOpenedValues:
     perm_next: torch.Tensor
     quotient: list  # per chunk: (4, 4) ext values of the 4 base columns
     local_cumulative_sum: torch.Tensor  # (4,) ext
+    global_sum: torch.Tensor | None  # (14,) canonical, global-scope chips only
     log_degree: int
 
 
@@ -105,11 +106,13 @@ def upload_trace(t: np.ndarray, target: int, device) -> torch.Tensor:
 
 
 class StarkMachine:
-    def __init__(self, config: StarkConfig, chips: list[Chip], num_public_values: int = 0):
+    def __init__(self, config: StarkConfig, chips: list[Chip], num_public_values: int = 0,
+                 shape_config=None):
         self.config = config
         self.chips = chips
         self.num_public_values = num_public_values
         self.chip_map = {c.name: c for c in chips}
+        self.shape_config = shape_config  # optional fixed-shape menu
 
     # ------------------------------------------------------------------ setup
 
@@ -119,7 +122,11 @@ class StarkMachine:
         for chip in self.chips:
             t = chip.air.generate_preprocessed(program)
             if t is not None:
-                t = pad_to_power_of_two(np.asarray(t, dtype=np.uint32))
+                t = np.asarray(t, dtype=np.uint32)
+                fixed_rows = None
+                if self.shape_config is not None:
+                    fixed_rows = self.shape_config.fix_preprocessed_rows(t.shape[0])
+                t = pad_to_power_of_two(t, fixed_rows=fixed_rows)
                 preps.append((chip.name, upload_trace(t, t.shape[0], device)))
         preps.sort(key=lambda nt: -nt[1].shape[0])
         if preps:
@@ -136,7 +143,7 @@ class StarkMachine:
 
     def prove_shard(self, pk: ProvingKey, record, public_values, device=None) -> ShardProof:
         """Prove one shard; ``record`` is passed opaquely to the chips."""
-        from ..utils.logger import span
+        from ..utils.logger import note, span
 
         device = resolve_device(device)
         if device != pk.device:
@@ -144,19 +151,33 @@ class StarkMachine:
         chips = [c for c in self.chips if c.air.included(record)]
         for name in pk.prep_traces:
             assert self.chip_map[name] in chips, f"preprocessed chip {name} must be included"
-        for c in chips:
-            if c.commit_scope == air.Scope.Global:
-                raise NotImplementedError(f"{c.name}: global-scope chips are not ported")
         public_values = torch.as_tensor(np.asarray(public_values, dtype=np.uint32).view(np.int32))
 
+        # Chips that consume other fills' side outputs (the Byte chip reads
+        # the byte-lookup arrays every ALU fill appends) run after the
+        # producers, whatever the order of the chip list.
         with span("prove.trace_gen"):
-            raw = {c.name: np.asarray(c.air.generate_trace(record, None), dtype=np.uint32) for c in chips}
+            raw = {}
+            for c in sorted(chips, key=lambda c: bool(getattr(c.air, "trace_consumes_fills", False))):
+                raw[c.name] = np.asarray(c.air.generate_trace(record, None), dtype=np.uint32)
+                note(f"rows.{c.name}", raw[c.name].shape[0])
         with span("prove.upload"):
+            shape = None
+            if self.shape_config is not None:
+                shape = self.shape_config.fix_shape(
+                    {n: t.shape[0] for n, t in raw.items()},
+                    widths={n: t.shape[1] for n, t in raw.items()},
+                )
             traces = {}
             for chip in chips:
                 t = raw.pop(chip.name)
                 fixed = pk.prep_traces.get(chip.name)
-                target = fixed.shape[0] if fixed is not None else padded_height(t.shape[0])
+                if fixed is not None:
+                    target = fixed.shape[0]
+                elif shape is not None and shape.log_h(chip.name) is not None:
+                    target = 1 << shape.log_h(chip.name)
+                else:
+                    target = padded_height(t.shape[0])
                 pad_hook = getattr(chip.air, "pad_rows", None)
                 if pad_hook is not None:
                     t = pad_hook(t, target)
@@ -191,8 +212,13 @@ class StarkMachine:
                     self.config.fri, [(Domain(log_degrees[n], 1), perm_flats[n]) for n in perm_names]
                 )
             ch.observe_digest(perm_data.root)
+        global_sums = {}
         for chip in chips:
             ch.observe_slice(ext4.to_canonical(cum_sums[chip.name]))
+            if chip.commit_scope == air.Scope.Global:
+                gsum = _chip_global_sum(traces[chip.name])
+                global_sums[chip.name] = gsum
+                ch.observe_slice(gsum)
         alpha = ch.sample_ext()
 
         publics_monty = f.to_monty(public_values)
@@ -204,9 +230,10 @@ class StarkMachine:
                 if n in pk.prep_order:
                     prep_coeffs = pk.prep_data.coeffs[pk.prep_order.index(n)]
                 perm_coeffs = perm_data.coeffs[perm_names.index(n)] if n in perm_names else None
+                gs = global_sums.get(n)
                 doms, chunks = quotient_mod.quotient_chunks(
                     chip, traces[n], pk.prep_traces.get(n), perm_flats[n], publics_monty,
-                    perm_challenges, cum_sums[n], None, alpha,
+                    perm_challenges, cum_sums[n], None if gs is None else f.to_monty(gs), alpha,
                     main_coeffs=main_data.coeffs[names.index(n)],
                     prep_coeffs=prep_coeffs, perm_coeffs=perm_coeffs,
                 )
@@ -267,6 +294,7 @@ class StarkMachine:
                 perm_next=empty if pe is None else pe[1],
                 quotient=qvals,
                 local_cumulative_sum=cum_sums[chip.name],
+                global_sum=global_sums.get(chip.name),
                 log_degree=log_degrees[chip.name],
             ))
 
@@ -295,8 +323,6 @@ class StarkMachine:
             c = self.chip_map.get(n)
             if c is None:
                 raise VerificationError(f"unknown chip {n}")
-            if c.commit_scope == air.Scope.Global:
-                raise VerificationError(f"{n}: global-scope chips are not ported")
             chips.append(c)
         if len(proof.opened) != len(chips):
             raise VerificationError("wrong number of opened chips")
@@ -312,6 +338,10 @@ class StarkMachine:
             if chip.perm_width_ext == 0 and not torch.equal(ov.local_cumulative_sum, ext4.zero()):
                 raise VerificationError(f"{chip.name}: nonzero cumsum without lookups")
             ch.observe_slice(ext4.to_canonical(ov.local_cumulative_sum))
+            if chip.commit_scope == air.Scope.Global:
+                if ov.global_sum is None:
+                    raise VerificationError("missing global sum")
+                ch.observe_slice(ov.global_sum)
         alpha = ch.sample_ext()
         ch.observe_digest(proof.quotient_root)
         zeta = ch.sample_ext()
@@ -365,6 +395,12 @@ class StarkMachine:
         return True
 
 
+def _chip_global_sum(trace_monty: torch.Tensor) -> torch.Tensor:
+    """The claimed global septic digest: the last row's trailing 14 main
+    columns, canonical, on the host."""
+    return f.from_monty(trace_monty[-1, -14:]).cpu()
+
+
 def _ext_from_flat(rows4: torch.Tensor) -> torch.Tensor:
     """The 4 opened ext values of an ext column's 4 base limbs -> its value:
     e(zeta) = sum_c v_c * X^c."""
@@ -401,6 +437,7 @@ def _verify_chip_constraints(chip, ov: ChipOpenedValues, zeta, alpha, perm_chall
         publics=publics_monty,
         challenges=perm_challenges,
         cum_sum=ov.local_cumulative_sum,
+        global_sum=None if ov.global_sum is None else f.to_monty(ov.global_sum),
         ext_mode=True,
     )
     folded = air.fold_constraints(chip.constraints, alpha, ctx)

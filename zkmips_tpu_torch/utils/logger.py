@@ -25,6 +25,7 @@ _CFG = {
 _TOTALS: dict[str, float] = defaultdict(float)
 _COUNTS: dict[str, int] = defaultdict(int)
 _STACK: list[str] = []
+_NOTES: dict[str, int] = {}
 
 
 def configure(enabled: bool | None = None, sync: bool | None = None, echo: bool | None = None):
@@ -60,6 +61,17 @@ def span(name: str):
             print(f"[span] {path}: {dt:.3f}s", file=sys.stderr, flush=True)
 
 
+def note(name: str, value: int):
+    """Keep a count (rows of a trace, say) under the enclosing spans' path."""
+    if _CFG["enabled"]:
+        _NOTES["/".join(_STACK + [name])] = value
+
+
+def notes_report() -> dict:
+    """{enclosing span path/name: value}, in the order noted."""
+    return dict(_NOTES)
+
+
 def spans_report() -> dict:
     """{span path: (total seconds, count)}."""
     return {k: (_TOTALS[k], _COUNTS[k]) for k in sorted(_TOTALS)}
@@ -68,3 +80,4 @@ def spans_report() -> dict:
 def spans_reset():
     _TOTALS.clear()
     _COUNTS.clear()
+    _NOTES.clear()
