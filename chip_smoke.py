@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--only-kernels]
+    python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--keccak-iters N]
+                          [--only-kernels | --only-full]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -20,17 +21,31 @@
    traces made from ``--seed``, 2^``--log-rows`` rows (default 2^18);
 5. proves a small shard of the same chips on the card and on the CPU and
    requires the two proofs to be equal field by field;
-6. the MIPS phase, at full size: assembles the fib guest (``--fib-iters``
-   iterations, default 200,000, about 1.2 M cycles), builds the native trace
-   executor from ``csrc/trace_executor.c`` and runs the guest in 2^20-cycle
-   shards, proves every shard with ``MipsMachine.prove`` at the core config
-   on the card (fifteen-chip minimal machine, fixed shapes), and checks the
-   proofs, the shard chain and the septic digest sum with
+6. the fib phase: assembles the fib guest (``--fib-iters`` iterations,
+   default 60,000, about 360,000 cycles), builds the native trace executor
+   from ``csrc/trace_executor.c`` and runs the guest in 2^18-cycle shards
+   (two shards), proves every shard with ``MipsMachine.prove`` at the core
+   config on the card (fifteen-chip minimal machine, fixed shapes), and
+   checks the proofs, the shard chain and the septic digest sum with
    ``MipsMachine.verify``; a flipped word of a global digest and two
    swapped proofs must be rejected; a small fib proved on the card and on
-   the CPU must give equal proofs.  The kernels' launch counts of the
-   ``kernels`` line are those of this phase's ``prove``;
-7. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
+   the CPU must give equal proofs;
+7. the full-machine phase, at full size: the keccak-chain guest of
+   ``bench.py`` (``--keccak-iters`` iterations, default 2,730: 65,520
+   KeccakSponge rows, about 161,000 cycles in one 2^20-cycle shard) runs
+   through ``execute_for_proving`` (the Python interpreter: the native
+   executor has no precompiles), is proved by ``mips_machine()`` (the 49
+   chips, core config, fixed shapes) on the card and verified; a flipped
+   word of KeccakSponge's opened values must be rejected; K1 is held
+   against its plain version at the widest leaf shape this prove gave it.
+   The kernels' launch counts of the ``kernels`` line are those of this
+   prove.  Then the six fixture ELFs of ``tests/fixtures/guests`` are
+   loaded, executed, proved on the card at the core config and verified;
+   and a guest that gives every one of the 49 chips rows is proved at the
+   test config on the card and on the CPU, and the two proofs must be equal.
+   ``--only-full`` runs the card line, the build and this phase alone
+   (exit code 0, no ``kernels`` line and no last line);
+8. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
    and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -75,7 +91,12 @@ BYTE_OPS = [
     lambda x, y: np.zeros_like(x),
 ]
 N_BYTE_OPS = len(BYTE_OPS)
-MIPS_SHARD_CYCLES = 1 << 20  # the shard size of the MIPS phase
+FIB_SHARD_CYCLES = 1 << 18  # the shard size of the fib phase
+FULL_SHARD_CYCLES = 1 << 20  # the shard size of the full-machine phase
+KECCAK_SPLIT_THRESHOLD = 1 << 17  # rows of a precompile family kept in one deferred shard
+FIXTURES = "tests/fixtures/guests"  # the compiled guests, relative to this script
+# io_hints_commit reads two little-endian u32 words from stdin
+IO_HINTS_STDIN = [(0x12345678).to_bytes(4, "little"), (0x0F0F0F0F).to_bytes(4, "little")]
 CPU_LOOKUPS = 21  # the reference Cpu chip's lookup count: 12 extension permutation columns
 CPU_PAIRS = 11
 
@@ -401,15 +422,31 @@ def fib_program(n_iters: int):
     return asm.prog(body + asm.halt_sequence())
 
 
-def expect_rejected(machine, vk, proofs, program, what: str):
+def print_shards(tag: str, proofs, card: str):
+    """Each shard's chips (rows, padded log-height) and stage spans, from the
+    tracing spans of the prove just run."""
+    from zkmips_tpu_torch.utils import logger
+
+    spans, rows = logger.spans_report(), logger.notes_report()
+    for proof in proofs:
+        shard = f"shard{int(proof.public_values[0])}"
+        chips = {n: [rows[f"{shard}/prove.trace_gen/rows.{n}"], o.log_degree]
+                 for n, o in zip(proof.chip_names, proof.opened)}
+        print(f"{tag} {shard} chips [rows, padded log-height]: " + json.dumps(chips), flush=True)
+        stages = {k.split("/", 1)[1]: round(v[0], 4) for k, v in spans.items() if k.startswith(shard + "/")}
+        print(f"{tag} {shard} stages: " + json.dumps(
+            {"card": card, "total_seconds": round(spans[shard][0], 4), "seconds": stages}), flush=True)
+
+
+def expect_rejected(machine, vk, proofs, program, what: str, tag: str = "mips"):
     from zkmips_tpu_torch.stark.machine import VerificationError
 
     try:
         machine.verify(vk, proofs, program)
     except VerificationError as e:
-        print(f"mips {what} rejected: {e}", flush=True)
+        print(f"{tag} {what} rejected: {e}", flush=True)
     else:
-        raise AssertionError(f"mips: {what} was accepted")
+        raise AssertionError(f"{tag}: {what} was accepted")
 
 
 def mips_phase(args, dev, card: str) -> dict:
@@ -430,12 +467,13 @@ def mips_phase(args, dev, card: str) -> dict:
           f"{lib.rsplit('/', 1)[-1]}", flush=True)
     program = fib_program(args.fib_iters)
     t0 = time.perf_counter()
-    records, info = execute_for_proving(program, shard_size=MIPS_SHARD_CYCLES)
+    records, info = execute_for_proving(program, shard_size=FIB_SHARD_CYCLES)
     exec_s = time.perf_counter() - t0
     cycles = info["global_clk"]
-    print(f"mips executor: {cycles} cycles in {exec_s:.3f} s, {len(records)} shards of up to "
-          f"{MIPS_SHARD_CYCLES} cycles, Cpu rows {[len(r.cpu_events) for r in records]}", flush=True)
-    if len(records[0].cpu_events) != MIPS_SHARD_CYCLES or len(records) < 2:
+    print(f"mips executor ({info['executor']}): {cycles} cycles in {exec_s:.3f} s, {len(records)} "
+          f"shards of up to {FIB_SHARD_CYCLES} cycles, Cpu rows {[len(r.cpu_events) for r in records]}",
+          flush=True)
+    if len(records[0].cpu_events) != FIB_SHARD_CYCLES or len(records) < 2:
         raise AssertionError("the guest does not fill one shard and start a second")
 
     machine = mips_machine(StarkConfig.core(), minimal=True)
@@ -455,15 +493,7 @@ def mips_phase(args, dev, card: str) -> dict:
     launches = dict(poseidon2_cuda.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
-    spans, rows = logger.spans_report(), logger.notes_report()
-    for proof in proofs:
-        shard = f"shard{int(proof.public_values[0])}"
-        chips = {n: [rows[f"{shard}/prove.trace_gen/rows.{n}"], o.log_degree]
-                 for n, o in zip(proof.chip_names, proof.opened)}
-        print(f"mips {shard} chips [rows, padded log-height]: " + json.dumps(chips), flush=True)
-        stages = {k.split("/", 1)[1]: round(v[0], 4) for k, v in spans.items() if k.startswith(shard + "/")}
-        print(f"mips {shard} stages: " + json.dumps(
-            {"card": card, "total_seconds": round(spans[shard][0], 4), "seconds": stages}), flush=True)
+    print_shards("mips", proofs, card)
     print(f"mips prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
           f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
           f"[{card}]", flush=True)
@@ -501,15 +531,188 @@ def mips_phase(args, dev, card: str) -> dict:
     return launches
 
 
+def keccak_phase(args, dev, card: str) -> dict:
+    """The keccak-chain guest at full size through the 49-chip machine;
+    returns the kernels' launch counts over ``MipsMachine.prove``."""
+    import copy
+
+    from zkmips_tpu_torch.executor import execute_for_proving, guests
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.ops import poseidon2 as p2, poseidon2_cuda
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.utils import logger
+
+    # the deferred-shard split threshold (the reference's SPLIT_THRESHOLD knob,
+    # 2^15 rows by default) raised so that the KeccakSponge events stay one
+    # deferred shard: 65,520 rows, padded to 2^16
+    os.environ["SPLIT_THRESHOLD"] = str(KECCAK_SPLIT_THRESHOLD)
+    program = guests.keccak_chain_program(args.keccak_iters)
+    t0 = time.perf_counter()
+    records, info = execute_for_proving(program, shard_size=FULL_SHARD_CYCLES)
+    exec_s = time.perf_counter() - t0
+    cycles = info["global_clk"]
+    print(f"keccak executor ({info['executor']}): {cycles} cycles in {exec_s:.3f} s, "
+          f"{cycles / exec_s:.1f} cycles/s, {len(records)} shards, KeccakSponge events "
+          f"{[len(r.precompile_events.get('keccak_sponge', [])) for r in records]} [{card}]", flush=True)
+    if info["executor"] != "interpreter":
+        raise AssertionError("the keccak guest did not run on the interpreter")
+
+    machine = mips_machine(StarkConfig.core())
+    if len(machine.airs) != 49:
+        raise AssertionError(f"mips_machine() has {len(machine.airs)} chips, not 49")
+    t0 = time.perf_counter()
+    pk = machine.setup(program)
+    torch.cuda.synchronize()
+    print(f"keccak setup: {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+
+    logger.configure(enabled=True, sync=True, echo=False)
+    logger.spans_reset()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    proofs = machine.prove(pk, records)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    shapes = sorted(poseidon2_cuda.HASH_SHAPES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    logger.configure(enabled=False)
+    print_shards("keccak", proofs, card)
+    print(f"keccak prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
+          f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"keccak launches over prove: {launches} [{card}]", flush=True)
+    print(f"keccak K1 leaf shapes (rows, width): {shapes}", flush=True)
+    at = [i for i, p in enumerate(proofs) if "KeccakSponge" in p.chip_names]
+    if len(at) != 1:
+        raise AssertionError(f"KeccakSponge is in {len(at)} shards, not one")
+    kproof = proofs[at[0]]
+    keccak = kproof.chip_names.index("KeccakSponge")
+    if kproof.opened[keccak].log_degree < 16:
+        raise AssertionError("KeccakSponge is below 2^16 padded rows")
+
+    t0 = time.perf_counter()
+    assert machine.verify(pk.vk, proofs, program)
+    print(f"keccak verify: accepted {len(proofs)} shard proofs in {time.perf_counter() - t0:.3f} s "
+          f"[{card}]", flush=True)
+    bad = copy.copy(proofs)
+    bad[at[0]] = copy.deepcopy(kproof)
+    bad[at[0]].opened[keccak].main_local[0] ^= 1
+    expect_rejected(machine, pk.vk, bad, program, "flipped word of KeccakSponge's opened values", "keccak")
+    del proofs, bad, kproof, pk, records
+    del os.environ["SPLIT_THRESHOLD"]
+
+    # K1 at the widest leaf shape of this prove, against its plain version
+    rows, width = max(shapes, key=lambda s: (s[1], s[0]))
+    m = rand_field(np.random.default_rng(args.seed + 5), (rows, width), dev)
+    got, want = poseidon2_cuda.hash_rows(m), p2.hash_matrix_rows_plain(m)
+    err = max_err(got, want)
+    print(f"kernel poseidon2_hash_rows ({rows}, {width}), the keccak prove's widest leaf: "
+          f"max_abs_err {err} [{card}]", flush=True)
+    if err != 0 or got.shape != want.shape:
+        raise AssertionError("poseidon2_hash_rows disagrees with its plain version at the widest leaf")
+    ms = cuda_ms(lambda: poseidon2_cuda.hash_rows(m), 3)
+    perms = rows * -(-width // 8)
+    bound_ms, bound_by, _ = poseidon2_bound(perms, m.numel() * 4 + rows * 32)
+    print(f"time poseidon2_hash_rows at ({rows}, {width}): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}) [{card}]", flush=True)
+    del m, got, want
+    return launches
+
+
+def elf_phase(dev, card: str):
+    """Each fixture ELF: load, execute, prove on the card at the core config, verify."""
+    from pathlib import Path
+
+    from zkmips_tpu_torch.executor import Program, execute_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+
+    root = Path(__file__).resolve().parent / FIXTURES
+    elfs = sorted(root.glob("*.elf"))
+    if len(elfs) != 6:
+        raise AssertionError(f"expected the six fixture ELFs under {root}, found {len(elfs)}")
+    machine = mips_machine(StarkConfig.core())
+    for path in elfs:
+        t0 = time.perf_counter()
+        program = Program.from_elf(path.read_bytes())
+        stdin = IO_HINTS_STDIN if path.stem == "io_hints_commit" else []
+        records, info = execute_for_proving(program, stdin_bufs=stdin, shard_size=FULL_SHARD_CYCLES)
+        exec_s = time.perf_counter() - t0
+        pk = machine.setup(program)
+        proofs = machine.prove(pk, records)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0 - exec_s
+        assert machine.verify(pk.vk, proofs, program)
+        chips = sorted({n for p in proofs for n in p.chip_names})
+        print(f"elf {path.stem}: {info['global_clk']} cycles ({info['executor']}, {exec_s:.3f} s), "
+              f"{len(proofs)} shards, chips {chips}, setup + prove {prove_s:.3f} s, verified, "
+              f"{time.perf_counter() - t0:.3f} s in all [{card}]", flush=True)
+
+
+def every_chip_phase(dev, card: str):
+    """A guest that gives all 49 chips rows, proved at the test config on the
+    card and on the CPU: the proofs must be equal field by field."""
+    from zkmips_tpu_torch import convert
+    from zkmips_tpu_torch.executor import execute_for_proving, guests
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.utils import logger
+
+    program = guests.every_chip_program()
+    machine = mips_machine(StarkConfig.test())
+
+    def prove_on(device):
+        t0 = time.perf_counter()
+        records, _ = execute_for_proving(program)
+        pk = machine.setup(program, device=device)
+        on_card = device != "cpu"
+        logger.configure(enabled=on_card, sync=True, echo=False)
+        logger.spans_reset()
+        proofs = machine.prove(pk, records, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        logger.configure(enabled=False)
+        verified = ""
+        if on_card:  # the stages of a shard of 49 small chips; the CPU's proofs must equal these
+            print_shards("every-chip", proofs, card)
+            t1 = time.perf_counter()
+            assert machine.verify(pk.vk, proofs, program)
+            verified = f", verified in {time.perf_counter() - t1:.3f} s"
+        print(f"every-chip guest on {device}: proved in {prove_s:.3f} s{verified} [{card}]", flush=True)
+        return [convert.shard_proof_to_numpy(p) for p in proofs]
+
+    on_card, on_cpu = prove_on(dev), prove_on("cpu")
+    names = {n for p in on_card for n in p["chip_names"]}
+    if names != {a.name for a in machine.airs} or len(names) != 49:
+        raise AssertionError(f"the every-chip guest left chips empty: {sorted({a.name for a in machine.airs} - names)}")
+    if not _same(on_card, on_cpu):
+        raise AssertionError("the card's proof of the every-chip guest differs from the CPU's")
+    print(f"every-chip guest: card and CPU proofs equal, {len(names)} chips", flush=True)
+
+
+def full_phase(args, dev, card: str) -> dict:
+    launches = keccak_phase(args, dev, card)
+    elf_phase(dev, card)
+    every_chip_phase(dev, card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-rows", type=int, default=18,
                     help="log2 rows of the synthetic shard's Cpu/AddSub-shaped chips")
-    ap.add_argument("--fib-iters", type=int, default=200_000,
-                    help="iterations of the MIPS phase's fib guest (6 cycles each)")
-    ap.add_argument("--only-kernels", action="store_true",
-                    help="stop after the kernel phase and its kernels line (exit code 0, no last line)")
+    ap.add_argument("--fib-iters", type=int, default=60_000,
+                    help="iterations of the fib phase's guest (6 cycles each)")
+    ap.add_argument("--keccak-iters", type=int, default=2730,
+                    help="iterations of the full-machine phase's keccak-chain guest (24 KeccakSponge rows each)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--only-kernels", action="store_true",
+                      help="stop after the kernel phase and its kernels line (exit code 0, no last line)")
+    only.add_argument("--only-full", action="store_true",
+                      help="run the full-machine phase alone (exit code 0, no kernels line, no last line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -537,6 +740,10 @@ def main() -> int:
     if sass:  # per kernel: all machine instructions, and the twelve commonest opcodes
         sass = {k: {"total": v["total"], "by_op": dict(list(v["by_op"].items())[:12])} for k, v in sass.items()}
     print("sass: " + (json.dumps(sass) if sass else "cuobjdump not found, instructions not counted"), flush=True)
+
+    if args.only_full:
+        full_phase(args, dev, card)
+        return 0
 
     machine = build_machine()
     for c in machine.chips:
@@ -601,7 +808,10 @@ def main() -> int:
 
     for name, n in mips_phase(args, dev, card).items():
         if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the MIPS path")
+            raise AssertionError(f"kernel {name} was not launched on the fib path")
+    for name, n in full_phase(args, dev, card).items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the keccak path")
         records[name]["launches"] = n
 
     print_kernels(records)

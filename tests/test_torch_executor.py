@@ -203,14 +203,21 @@ def test_commit_reaches_the_public_values():
 
 
 def test_unsupported_guest_raises_and_names_the_missing_interpreter():
+    """The native executor refuses a precompile guest and names the Python
+    interpreter; ``execute_for_proving`` then runs that interpreter, and so
+    it does for a deferred-proof stream."""
     a, _, R, _ = PORT_SIDE
     # SHA_EXTEND precompile: the native machine does not run it
     body = [*a.li(R.V0, 0x30010005), *a.li(R.A0, 0x2000), *a.li(R.A1, 0), a.syscall()]
-    with pytest.raises(NativeUnsupported, match="not ported"):
-        execute_for_proving(asm.prog(body + asm.halt_sequence()))
-    with pytest.raises(NativeUnsupported, match="not ported"):
-        execute_for_proving(asm.prog(fib_body(PORT_SIDE, 3) + asm.halt_sequence()),
-                            proof_stream=[object()])
+    program = asm.prog(body + asm.halt_sequence())
+    with pytest.raises(NativeUnsupported, match="Python trace executor"):
+        native_trace.run_trace(program)
+    records, info = execute_for_proving(program)
+    assert info["executor"] == "interpreter"
+    assert len(records[0].precompile_events["sha_extend"]) == 1
+    _, info = execute_for_proving(asm.prog(fib_body(PORT_SIDE, 3) + asm.halt_sequence()),
+                                  proof_stream=[object()])
+    assert info["executor"] == "interpreter"
 
 
 def test_max_cycles_raises():

@@ -13,6 +13,7 @@ import pytest
 
 from zkmips_tpu.executor import Executor as JExecutor
 from zkmips_tpu.executor import asm as jasm
+from zkmips_tpu.machine.machine import core_chip_airs as j_core_chip_airs
 from zkmips_tpu.machine.machine import mips_machine as j_mips_machine
 from zkmips_tpu.ops import field as jf
 from zkmips_tpu.ops import septic as jseptic
@@ -21,7 +22,7 @@ from zkmips_tpu.stark.machine import StarkConfig as JStarkConfig
 
 from zkmips_tpu_torch import convert
 from zkmips_tpu_torch.executor import asm
-from zkmips_tpu_torch.machine.machine import MISSING_CHIPS, core_chip_airs, mips_machine
+from zkmips_tpu_torch.machine.machine import core_chip_airs, minimal_chip_airs, mips_machine
 from zkmips_tpu_torch.ops import field as tf
 from zkmips_tpu_torch.ops import septic
 from zkmips_tpu_torch.stark.chip import pad_to_power_of_two, padded_height
@@ -56,12 +57,14 @@ def both():
 
 
 def test_machine_lists_the_fifteen_chips(both):
+    """The minimal machine keeps its fifteen chips in the reference's order;
+    the full machine has the reference's 49 in its order."""
     assert [a.name for a in both["tm"].airs] == CHIP_NAMES
     assert [a.name for a in both["jm"].airs] == CHIP_NAMES
-    assert [a.name for a in core_chip_airs()] == CHIP_NAMES
-    with pytest.raises(NotImplementedError, match="Mul"):
-        mips_machine(StarkConfig.test(), minimal=False)
-    assert len(MISSING_CHIPS) >= 12
+    assert [a.name for a in minimal_chip_airs()] == CHIP_NAMES
+    full = [a.name for a in j_core_chip_airs()]
+    assert len(full) == 49 and [a.name for a in core_chip_airs()] == full
+    assert [a.name for a in mips_machine(StarkConfig.test(), minimal=False).airs] == full
 
 
 @pytest.mark.parametrize("name", CHIP_NAMES)

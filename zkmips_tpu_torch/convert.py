@@ -121,7 +121,7 @@ def record_to_port(record, program=None):
     from .executor import columnar, events as ev
 
     if any(record.precompile_events.values()):
-        raise ValueError("precompile events have no chip in the port yet")
+        raise ValueError("record_to_port converts records without precompile events")
     if program is None:
         program = program_to_port(record.program)
     cols = columnar.Columns(

@@ -1,13 +1,13 @@
-"""MIPS32r2 execution for the proving pipeline: programs, events, records.
+"""MIPS32r2 executor: ELF loading, emulation, event recording, sharding.
 
-The port runs guests on the native trace-mode executor
-(``csrc/trace_executor.c`` through ``native_trace``).  The reference
-package's Python interpreter, its syscalls and hooks, and ELF loading of
-compiled guests are not ported yet: a guest the native machine cannot run
-raises ``NativeUnsupported``.
+Two executors emit the same records: the native trace-mode executor
+(``csrc/trace_executor.c`` through ``native_trace``), which runs the guests
+it can, and the Python interpreter (``executor.Executor``) with its syscalls
+and hooks, which runs the rest.
 """
 
 from .events import ExecutionRecord, MemoryAccessRecord, MemoryRecord
+from .executor import Executor, ExecutorMode
 from .instruction import Instruction, decode_instruction
 from .native import ExecutionError, NativeUnsupported
 from .opcodes import Opcode, Register, SyscallCode
@@ -16,6 +16,8 @@ from .program import Program
 __all__ = [
     "ExecutionError",
     "ExecutionRecord",
+    "Executor",
+    "ExecutorMode",
     "Instruction",
     "MemoryAccessRecord",
     "MemoryRecord",
@@ -33,23 +35,43 @@ def execute_for_proving(program, stdin_bufs=(), proof_stream=(), shard_size: int
                         max_cycles: int | None = None):
     """Execute a program for the proving pipeline: (records, info).
 
-    Runs the native trace-mode executor, which emits array-backed records.
-    Guests it cannot run (precompile syscalls, hooks, unconstrained mode,
-    deferred proofs) raise ``NativeUnsupported``: there is no other path.
-    ``info`` carries global_clk, exit_code, public_values, stdout, and the
-    committed digest.
+    The native trace-mode executor emits array-backed records.  Guests it
+    cannot run (precompile syscalls, hooks, unconstrained mode, deferred
+    proofs) raise ``NativeUnsupported`` there and go to the Python
+    interpreter; any other failure of the native path (a missing C
+    toolchain included) raises.  ``info`` carries global_clk, exit_code,
+    public_values, stdout, the committed digest, and ``executor``: which of
+    the two ran (``"native"`` or ``"interpreter"``).
     """
-    from . import native_trace
+    if not proof_stream:
+        from . import native_trace
 
-    if proof_stream:
-        raise NativeUnsupported(
-            "deferred proofs need the Python interpreter, which is not ported yet"
-        )
-    records, info = native_trace.run_trace(
-        program, stdin=stdin_bufs, shard_size=shard_size,
-        max_cycles=max_cycles if max_cycles is not None else 1 << 40,
-    )
-    if info["hit_max_cycles"]:
-        raise ExecutionError(f"exceeded max_cycles {max_cycles}")
-    info["digest"] = list(info["digest"])
+        try:
+            records, info = native_trace.run_trace(
+                program, stdin=stdin_bufs, shard_size=shard_size,
+                max_cycles=max_cycles if max_cycles is not None else 1 << 40,
+            )
+        except NativeUnsupported:
+            pass
+        else:
+            if info["hit_max_cycles"]:
+                raise ExecutionError(f"exceeded max_cycles {max_cycles}")
+            info["digest"] = list(info["digest"])
+            info["executor"] = "native"
+            return records, info
+
+    ex = Executor(program, shard_size=shard_size)
+    for buf in stdin_bufs:
+        ex.write_stdin(buf)
+    ex.proof_stream.extend(proof_stream)
+    records = ex.run(max_cycles)
+    info = {
+        "global_clk": ex.global_clk,
+        "exit_code": ex.exit_code,
+        "public_values": bytes(ex.public_values_stream),
+        "stdout": bytes(ex.stdout),
+        "digest": list(ex.committed_value_digest),
+        "hit_max_cycles": False,
+        "executor": "interpreter",
+    }
     return records, info

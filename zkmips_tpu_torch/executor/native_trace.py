@@ -8,8 +8,8 @@ trace generation.  The reference package's Python interpreter is the semantic
 reference; tests/test_torch_executor.py compares the two column-for-column.
 
 Unsupported guests (precompile syscalls, hooks, unconstrained mode,
-cycle-tracker prints) raise NativeUnsupported: the Python interpreter that
-could run them is not ported yet.
+cycle-tracker prints) raise NativeUnsupported; ``execute_for_proving`` then
+runs the Python ``Executor``.
 
 The C source is the repository's ``csrc/trace_executor.c``, compiled where it
 lies into ``build/native/`` at first use.
@@ -127,9 +127,7 @@ class run_trace_stream:
                     meta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), _u32p(digest),
                 )
                 if st == TR_UNSUPPORTED:
-                    raise NativeUnsupported(
-                        "guest needs the Python trace executor, which is not ported yet"
-                    )
+                    raise NativeUnsupported("guest needs the Python trace executor")
                 if st == TR_ERROR:
                     raise ExecutionError("native trace executor: guest fault")
                 rows = int(meta[0])

@@ -233,16 +233,21 @@ class GlobalAir(BaseAir):
             if j >= 23:
                 top7 += bit
         t[:, s.idx("rcw")] = _RCW_LUT[top7]
-        # sequential septic cumulative sum (the one irreducibly serial part)
-        cum = ([int(c) for c in START[0]], [int(c) for c in START[1]])
-        cx = np.empty((n, 7), dtype=np.uint32)
-        cy = np.empty((n, 7), dtype=np.uint32)
-        for i in range(n):
-            cum = septic.curve_add_int(
-                cum, ([int(c) for c in xs[i]], [int(c) for c in ys_signed[i]])
-            )
-            cx[i] = cum[0]
-            cy[i] = cum[1]
+        # septic cumulative sum: in blocks (ops/septic.curve_prefix_sums),
+        # or, where an addition meets equal x coordinates, the serial chain
+        sums = septic.curve_prefix_sums(START, xs, ys_signed)
+        if sums is not None:
+            cx, cy = (a.astype(np.uint32) for a in sums)
+        else:
+            cum = ([int(c) for c in START[0]], [int(c) for c in START[1]])
+            cx = np.empty((n, 7), dtype=np.uint32)
+            cy = np.empty((n, 7), dtype=np.uint32)
+            for i in range(n):
+                cum = septic.curve_add_int(
+                    cum, ([int(c) for c in xs[i]], [int(c) for c in ys_signed[i]])
+                )
+                cx[i] = cum[0]
+                cy[i] = cum[1]
         for j in range(7):
             t[:, s.idx(f"cx{j}")] = cx[:, j]
             t[:, s.idx(f"cy{j}")] = cy[:, j]

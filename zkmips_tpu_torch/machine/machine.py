@@ -47,23 +47,58 @@ from .syscall_instr import SyscallInstrAir
 # (reference crates/core/machine/src/lib.rs MAX_CPU_LOG_DEGREE)
 MAX_CPU_LOG_DEGREE = 22
 
-# Chips of the reference's full machine that the port does not have yet, in
-# the reference's list order, by the module that holds each there.
-MISSING_CHIPS = (
-    "Mul (mul.py)", "DivRem (divrem.py)", "CloClz (cloclz.py)",
-    "MemoryInstrs (memory_instr.py)", "MiscInstrs and MovCond (misc.py)",
-    "SyscallCore and SyscallPrecompile (syscall_chip.py)",
-    "ShaExtend (sha_extend.py)", "ShaCompress (sha_compress.py)",
-    "Poseidon2 (poseidon2_chip.py)", "KeccakSponge (keccak_chip.py)",
-    "SysLinux (sys_linux.py)", "the EC and field precompiles (precompiles_ec.py)",
-)
-
-
 def core_chip_airs() -> list:
-    """The chips that are ported: the reference's minimal machine, which has
-    a receiving chip for every opcode the mini-assembler emits.  Byte-lookup
-    producers must precede the Byte chip.  ``MISSING_CHIPS`` names the rest
-    of the reference's full list."""
+    """The reference's 49 chips in its order; byte-lookup producers must
+    precede the Byte chip."""
+    from .cloclz import CloClzAir
+    from .divrem import DivRemAir
+    from .keccak_chip import KeccakSpongeAir
+    from .memory_instr import MemoryInstrAir
+    from .misc import MiscInstrAir, MovCondAir
+    from .mul import MulAir
+    from .poseidon2_chip import Poseidon2ChipAir
+    from .precompiles_ec import ec_precompile_airs
+    from .sha_compress import ShaCompressAir
+    from .sha_extend import ShaExtendAir
+    from .sys_linux import SysLinuxAir
+    from .syscall_chip import SyscallCoreAir, SyscallPrecompileAir
+
+    return [
+        CpuAir(),
+        AddSubAir(),
+        BitwiseAir(),
+        LtAir(),
+        ShiftLeftAir(),
+        ShiftRightAir(),
+        MulAir(),
+        DivRemAir(),
+        CloClzAir(),
+        BranchAir(),
+        JumpAir(),
+        MemoryInstrAir(),
+        MiscInstrAir(),
+        MovCondAir(),
+        SyscallInstrAir(),
+        SyscallCoreAir(),
+        SyscallPrecompileAir(),
+        ShaExtendAir(),
+        ShaCompressAir(),
+        Poseidon2ChipAir(),
+        KeccakSpongeAir(),
+        SysLinuxAir(),
+        *ec_precompile_airs(),
+        MemoryLocalAir(),
+        MemoryGlobalInitAir(),
+        MemoryGlobalFinalizeAir(),
+        GlobalAir(),
+        ProgramAir(),
+        ByteAir(),
+    ]
+
+
+def minimal_chip_airs() -> list:
+    """The minimal machine: every opcode the mini-assembler's li/branch
+    helpers emit has a receiving chip (Cpu dispatches unconditionally)."""
     return [
         CpuAir(), AddSubAir(), BitwiseAir(), LtAir(), ShiftLeftAir(),
         ShiftRightAir(), BranchAir(), JumpAir(), SyscallInstrAir(),
@@ -330,24 +365,21 @@ def _complete_add(p1, p2):
 
 
 def mips_machine(config: StarkConfig | None = None, minimal: bool = False) -> MipsMachine:
-    """The MIPS machine.  Only the minimal machine (``minimal=True``: every
-    opcode the mini-assembler's helpers emit has a receiving chip, since Cpu
-    dispatches unconditionally) is ported."""
-    if not minimal:
-        raise NotImplementedError(
-            "only mips_machine(minimal=True) is ported; the full machine still needs: "
-            + ", ".join(MISSING_CHIPS)
-        )
-    return MipsMachine(config, chip_airs=core_chip_airs())
+    """The MIPS machine: the reference's 49 chips, or with ``minimal=True``
+    the fifteen of ``minimal_chip_airs``."""
+    if minimal:
+        return MipsMachine(config, chip_airs=minimal_chip_airs())
+    return MipsMachine(config)
 
 
 def prove_program(program, stdin=(), config: StarkConfig | None = None,
                   machine: MipsMachine | None = None, shard_size: int = 1 << 20, device=None):
-    """Execute ``program`` natively and prove every shard: (machine, pk, proofs, info)."""
+    """Execute ``program`` and prove every shard with ``machine`` (the full
+    machine unless given): (machine, pk, proofs, info)."""
     from ..executor import execute_for_proving
 
     device = resolve_device(device)
-    m = machine or mips_machine(config, minimal=True)
+    m = machine or MipsMachine(config)
     records, info = execute_for_proving(program, stdin_bufs=stdin, shard_size=shard_size)
     pk = m.setup(program, device=device)
     proofs = m.prove(pk, records, device=device)

@@ -15,19 +15,6 @@ from .gadgets import ColView
 from .instr_chip import InstrAir
 from .pv import PV_DEFERRED_DIGEST, PV_DIGEST
 
-# Linux o32 syscall ids this chip dispatches to the SysLinux chip.  The
-# reference keeps the set beside that chip (machine/sys_linux.py), which is
-# not ported yet; the instruction chip needs only the ids.
-_C = SyscallCode
-LINUX_IDS = {int(c) for c in (
-    _C.SYS_BRK, _C.SYS_MMAP, _C.SYS_MMAP2, _C.SYS_CLONE, _C.SYS_READ, _C.SYS_WRITE,
-    _C.SYS_FCNTL, _C.SYS_EXT_GROUP,
-    _C.SYS_OPEN, _C.SYS_CLOSE, _C.SYS_MUNMAP, _C.SYS_RT_SIGACTION,
-    _C.SYS_RT_SIGPROCMASK, _C.SYS_SIGALTSTACK, _C.SYS_FSTAT64, _C.SYS_MADVISE,
-    _C.SYS_GETTID, _C.SYS_SCHED_GETAFFINITY, _C.SYS_CLOCK_GETTIME, _C.SYS_OPENAT,
-    _C.SYS_PRLIMIT64,
-)}
-
 SYS_FLAGS = [
     ("is_halt_sc", SyscallCode.HALT),
     ("is_write_sc", SyscallCode.WRITE),
@@ -228,6 +215,8 @@ class SyscallInstrAir(InstrAir):
                         sink.u16(np.array([0x7EFF - c_hi], dtype=np.uint32))
                 break
         else:
+            from .sys_linux import LINUX_IDS
+
             if sid not in LINUX_IDS:
                 raise AssertionError(f"unsupported syscall id {sid:#x} in trace")
             t[i, s.idx("is_linux_sc")] = 1

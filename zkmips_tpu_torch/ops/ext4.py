@@ -49,20 +49,34 @@ def sub(a, b) -> torch.Tensor:
     return f.sub(a, b)
 
 
-def _mul64(a, b):
-    """Schoolbook product with X^4 = 3, as four int64 coefficient tensors."""
-    a0, a1, a2, a3 = (a[..., i] for i in range(4))
-    b0, b1, b2, b3 = (b[..., i] for i in range(4))
-    m = f.mul64
-    c0 = m(a0, b0) + 3 * (m(a1, b3) + m(a2, b2) + m(a3, b1))
-    c1 = m(a0, b1) + m(a1, b0) + 3 * (m(a2, b3) + m(a3, b2))
-    c2 = m(a0, b2) + m(a1, b1) + m(a2, b0) + 3 * m(a3, b3)
-    c3 = m(a0, b3) + m(a1, b2) + m(a2, b1) + m(a3, b0)
-    return c0, c1, c2, c3
+# The schoolbook product's 16 terms a_i * b_j (flattened as 4 i + j) go to
+# coefficient (i + j) mod 4, times 3 where i + j >= 4 (X^4 = 3).  _TERMS lists
+# them grouped by coefficient.
+_WEIGHT = [3 if i + j >= 4 else 1 for i in range(4) for j in range(4)]
+_TERMS = [4 * i + (k - i) % 4 for k in range(4) for i in range(4)]
+_TABLES: dict = {}
+
+
+def _tables(device):
+    key = str(device)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = (torch.tensor(_WEIGHT, dtype=torch.int64, device=device),
+                            torch.tensor(_TERMS, dtype=torch.int64, device=device))
+    return t
+
+
+def _mul64(a, b) -> torch.Tensor:
+    """Schoolbook product with X^4 = 3: the (..., 4) int64 coefficient sums,
+    from one Montgomery product of every coefficient pair."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    weight, terms = _tables(a.device)
+    prod = f.mul64(a[..., :, None], b[..., None, :]).flatten(-2) * weight
+    return prod[..., terms].unflatten(-1, (4, 4)).sum(-1)
 
 
 def mul(a, b) -> torch.Tensor:
-    return f.narrow(torch.stack(_mul64(a, b), dim=-1) % f.P)
+    return f.narrow(_mul64(a, b) % f.P)
 
 
 def mul_base(a, b) -> torch.Tensor:
@@ -97,7 +111,7 @@ def frobenius(a, k: int = 1) -> torch.Tensor:
 def inv(a) -> torch.Tensor:
     """a^{-1} = (product of conjugates) / N(a); zero maps to zero."""
     b = mul(mul(frobenius(a, 1), frobenius(a, 2)), frobenius(a, 3))
-    norm = f.narrow(_mul64(a, b)[0] % f.P)  # a*b lies in the base field
+    norm = f.narrow(_mul64(a, b)[..., 0] % f.P)  # a*b lies in the base field
     return mul_base(b, f.inv(norm))
 
 

@@ -6,10 +6,10 @@ arrays (every value is below p < 2^31).  torch has no usable uint32
 arithmetic on the CPU, so every operation widens to ``torch.int64``: a
 product of two reduced elements is below 2^62.
 
-The Montgomery reduction keeps to int64: ``m = lo * MU mod 2^32`` is formed by
-shift-adds (MU = 2^31 + 2^24 + 1 is sparse), never by an int64 multiply
-that could overflow.  The ``*64`` helpers return int64 and also accept plain
-Python ints, which the host-side transcript code uses.
+The Montgomery product a*b*R^{-1} is formed as (a*b mod p) * R^{-1} mod p:
+both products stay below 2^62, so int64 never overflows.  The ``*64``
+helpers return int64 and also accept plain Python ints, which the host-side
+transcript code uses.
 
 The host-side trace fills of the MIPS chips and the septic curve work on
 numpy arrays: every function here also takes numpy ``uint32`` arrays and
@@ -24,11 +24,11 @@ import torch
 P = 0x7F000001  # 2^31 - 2^24 + 1
 MONTY_MU = 0x81000001  # P^{-1} mod 2^32
 R2 = 0x17F7EFE4  # (2^32)^2 mod P
+R_INV = pow(1 << 32, P - 2, P)  # (2^32)^-1 mod P
 MONTY_ONE = 0x01FFFFFE  # 2^32 mod P
 GENERATOR = 3
 TWO_ADICITY = 24
 
-_M32 = 0xFFFFFFFF
 
 # ---------------------------------------------------------------------------
 # Scalar (python int) helpers
@@ -65,7 +65,7 @@ HALF = to_monty_int((P + 1) // 2)
 
 def _wide(x):
     if isinstance(x, torch.Tensor):
-        return x.to(torch.int64)
+        return x if x.dtype == torch.int64 else x.to(torch.int64)
     if isinstance(x, (np.ndarray, np.generic)):
         return x.astype(np.int64)
     return x
@@ -84,22 +84,19 @@ def monty_const(x: int) -> np.uint32:
 
 
 def mul64(a, b):
-    """Montgomery product a*b*R^{-1} mod p as int64 (inputs in [0, p))."""
-    x = _wide(a) * _wide(b)
-    lo = x & _M32
-    m = (lo + ((lo & 0xFF) << 24) + ((lo & 1) << 31)) & _M32
-    r = (x - m * P) >> 32  # exact: x - m*P is a multiple of 2^32
-    return r + ((r >> 63) & P)
+    """Montgomery product a*b*R^{-1} mod p as int64 (inputs in [0, p)): the
+    product reduced mod p, times R^{-1} mod p, reduced again.  Both products
+    stay below 2^62; four tensor operations, where the shift-add reduction
+    took a dozen."""
+    return _wide(a) * _wide(b) % P * R_INV % P
 
 
 def add64(a, b):
-    r = _wide(a) + _wide(b) - P
-    return r + ((r >> 63) & P)
+    return (_wide(a) + _wide(b)) % P
 
 
 def sub64(a, b):
-    r = _wide(a) - _wide(b)
-    return r + ((r >> 63) & P)
+    return (_wide(a) - _wide(b)) % P
 
 
 def mul(a, b) -> torch.Tensor:

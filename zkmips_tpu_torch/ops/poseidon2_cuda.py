@@ -41,9 +41,15 @@ _LIB = None
 _CONSTANTS_ON: set = set()  # device indices whose constant memory is loaded
 
 
+# (rows, width) of every matrix ``hash_rows`` launched on since the last
+# reset: the leaf shapes a path gives K1
+HASH_SHAPES: set = set()
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    HASH_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -198,6 +204,7 @@ def hash_rows(mat: torch.Tensor) -> torch.Tensor:
     """Sponge digest of every row: (n, w) int32 -> (n, 8)."""
     mat = _validated(mat, None, "hash_rows")
     n, w = mat.shape
+    HASH_SHAPES.add((n, w))
     return _launch("poseidon2_hash_rows", "zkm_p2_hash_rows", _digests(n, mat), mat.data_ptr(), n, w)
 
 

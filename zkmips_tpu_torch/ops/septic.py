@@ -341,13 +341,16 @@ ZERO_DIGEST_INT = (
 
 
 def _poly_mulmod_np(a, b):
-    """(n, 7) x (n, 7) canonical u64 -> (n, 7), z^7 = 8 - 2z reduction."""
+    """(n, 7) x (n, 7) canonical u64 -> (n, 7), z^7 = 8 - 2z reduction.
+    The 49 products are reduced in one pass; a coefficient sums at most
+    seven of them (below 2^34) before its reduction."""
     n = a.shape[0]
     P = np.uint64(f.P)
+    prod = a[:, :, None] * b[:, None, :] % P
     c = np.zeros((n, 13), dtype=np.uint64)
     for i in range(7):
-        for j in range(7):
-            c[:, i + j] = (c[:, i + j] + a[:, i] * b[:, j] % P) % P
+        c[:, i : i + 7] += prod[:, i, :]
+    c %= P
     for k in range(12, 6, -1):
         c[:, k - 7] = (c[:, k - 7] + np.uint64(8) * c[:, k]) % P
         c[:, k - 6] = (c[:, k - 6] + (P - c[:, k]) % P * np.uint64(2)) % P
@@ -357,11 +360,7 @@ def _poly_mulmod_np(a, b):
 def _frob_apply_np(a, k: int):
     m = np.array(_frob_int_matrix(k), dtype=np.uint64)  # m[i][j]
     P = np.uint64(f.P)
-    out = np.zeros_like(a)
-    for i in range(7):
-        for j in range(7):
-            out[:, j] = (out[:, j] + a[:, i] * m[i, j] % P) % P
-    return out
+    return (a[:, :, None] * m[None, :, :] % P).sum(axis=1) % P
 
 
 def _pow_np(a, e: int):
@@ -489,3 +488,81 @@ def lift_x_batch(m):
     if active.any():
         raise ValueError("no curve point found in 256 offsets")
     return x_out, y_out, off_out
+
+
+# ---------------------------------------------------------------------------
+# Batched running sum of curve points (canonical u64), for the Global chip's
+# cumulative digest column.  The serial Python-int chain costs about 0.5 ms
+# a point (one F_{p^7} inversion each); here the points are cut into blocks
+# of about sqrt(n), the sums within the blocks advance all blocks at once,
+# the block totals are chained serially, and each block's offset is added to
+# its sums in one batch.  Group addition is associative and affine
+# coordinates are unique, so the sums equal the serial chain's, as long as
+# no addition on either route meets equal x coordinates (a doubling or the
+# point at infinity): then None is returned and the caller runs the chain.
+# ---------------------------------------------------------------------------
+
+
+def _inv7_np(a):
+    """(n, 7) canonical u64 -> inverses (zero rows give zero), as _inv_int7."""
+    P = np.uint64(f.P)
+    b = _frob_apply_np(a, 1)
+    for k in range(2, 7):
+        b = _poly_mulmod_np(b, _frob_apply_np(a, k))
+    ninv = _modpow_np(_poly_mulmod_np(a, b)[:, 0], f.P - 2)
+    return b * ninv[:, None] % P
+
+
+def curve_add_batch(x1, y1, x2, y2):
+    """Incomplete addition of (n, 7) canonical u64 points, as curve_add_int;
+    also returns which rows had distinct x coordinates (the formula holds)."""
+    P = np.uint64(f.P)
+    dx = (x2 + P - x1) % P
+    dy = (y2 + P - y1) % P
+    slope = _poly_mulmod_np(dy, _inv7_np(dx))
+    x3 = (_poly_mulmod_np(slope, slope) + (P - x1) + (P - x2)) % P
+    y3 = (_poly_mulmod_np(slope, (x1 + P - x3) % P) + P - y1) % P
+    return x3, y3, dx.any(axis=1)
+
+
+def curve_prefix_sums(start, xs, ys):
+    """Running sums start + P_0 + ... + P_i of the (n, 7) canonical points
+    (xs, ys), as (n, 7) u64 arrays (x, y); None if some addition of the
+    serial chain or of this route meets equal x coordinates."""
+    xs = np.asarray(xs, dtype=np.uint64)
+    ys = np.asarray(ys, dtype=np.uint64)
+    n = xs.shape[0]
+    block = max(1, int(np.sqrt(n)))
+    starts = np.arange(0, n, block)
+    ends = np.minimum(starts + block, n)
+    # sums within each block
+    sx, sy = xs.copy(), ys.copy()
+    ax, ay = xs[starts].copy(), ys[starts].copy()
+    for j in range(1, block):
+        live = starts + j < ends
+        if not live.any():
+            break
+        idx = starts[live] + j
+        ax[live], ay[live], ok = curve_add_batch(ax[live], ay[live], xs[idx], ys[idx])
+        if not ok.all():
+            return None
+        sx[idx], sy[idx] = ax[live], ay[live]
+    # block offsets: start, then start plus each block's total, chained
+    off = ([int(c) for c in start[0]], [int(c) for c in start[1]])
+    offs_x = np.empty((len(starts), 7), dtype=np.uint64)
+    offs_y = np.empty((len(starts), 7), dtype=np.uint64)
+    for b, e in enumerate(ends):
+        offs_x[b], offs_y[b] = off[0], off[1]
+        total = ([int(c) for c in sx[e - 1]], [int(c) for c in sy[e - 1]])
+        if off[0] == total[0]:
+            return None
+        off = curve_add_int(off, total)
+    rep = np.repeat(np.arange(len(starts)), ends - starts)
+    cx, cy, ok = curve_add_batch(offs_x[rep], offs_y[rep], sx, sy)
+    if not ok.all():
+        return None
+    # the serial chain adds P_i to the sum before it: its x must differ
+    prev_x = np.concatenate([np.asarray([start[0]], dtype=np.uint64), cx[:-1]])
+    if not (prev_x != xs).any(axis=1).all():
+        return None
+    return cx, cy

@@ -387,13 +387,14 @@ class EvalContext:
     """Bindings for one evaluation pass, all on ``device``.
 
     var_fn(segment, col, offset) -> base tensor (shape S), or ext (S, 4) for
-    PERM; selectors: {FIRST, LAST, TRANSITION} -> base tensors of shape S (ext
-    scalars when ext_mode); publics (num_pv,); challenges [(4,), (4,)];
-    cum_sum (4,); global_sum (14,).
+    PERM; selectors: {FIRST, LAST, TRANSITION} -> base tensors of shape S;
+    publics (num_pv,); challenges [(4,), (4,)]; cum_sum (4,); global_sum (14,).
     """
 
+    ext_mode = False  # the verifier's IntEvalContext binds every var as ext
+
     def __init__(self, var_fn, selectors, publics=None, challenges=None, cum_sum=None,
-                 global_sum=None, device="cpu", ext_mode: bool = False):
+                 global_sum=None, device="cpu"):
         self.device = torch.device(device)
         self.var_fn = var_fn
         self.selectors = selectors
@@ -401,11 +402,31 @@ class EvalContext:
         self.challenges = None if challenges is None else [self._on(c) for c in challenges]
         self.cum_sum = self._on(cum_sum)
         self.global_sum = self._on(global_sum)
-        self.ext_mode = ext_mode  # verifier: vars and selectors are ext scalars
         self.cache: dict[int, Val] = {}
 
     def _on(self, t):
         return None if t is None else torch.as_tensor(t).to(self.device)
+
+    def const(self, value: int) -> torch.Tensor:
+        return _const(value, self.device)
+
+    # -- the alpha fold ------------------------------------------------------
+
+    def alpha_powers(self, alpha, n: int):
+        return ext4.powers(torch.as_tensor(alpha).to(self.device), n)
+
+    def fold_term(self, acc, v: Val, apow):
+        """acc + apow * v, summed in int64 and reduced by ``fold_result``."""
+        if v.is_ext:
+            term = ext4.mul(v.arr, apow)
+        else:
+            # base constraint times an ext power: 4 base products, not 16
+            term = f.mul(apow, _bcast_base(v.arr))
+        term = term.to(torch.int64)
+        return term if acc is None else acc + term
+
+    def fold_result(self, acc) -> torch.Tensor:
+        return f.narrow(acc % f.P)
 
     # -- mixed base/ext ring ops ---------------------------------------------
 
@@ -437,9 +458,149 @@ class EvalContext:
         return Val(ext4.from_base(a.arr), True), b
 
 
+class IntEvalContext:
+    """The verifier's bindings on Python ints, for one evaluation at a point:
+    a base value is a Montgomery int, an ext value a list of four.  The same
+    arithmetic as ``EvalContext`` in ext mode, without a tensor operation per
+    DAG node.  The arguments are as for ``EvalContext`` (tensors or lists);
+    ``var_fn`` returns ext values as lists."""
+
+    ext_mode = True
+
+    def __init__(self, var_fn, selectors, publics=None, challenges=None, cum_sum=None,
+                 global_sum=None):
+        self.var_fn = var_fn
+        self.selectors = {k: _ints(v) for k, v in selectors.items()}
+        self.publics = _ints(publics)
+        self.challenges = None if challenges is None else [_ints(c) for c in challenges]
+        self.cum_sum = _ints(cum_sum)
+        self.global_sum = _ints(global_sum)
+        self.cache: dict[int, Val] = {}
+
+    @staticmethod
+    def const(value: int) -> int:
+        return f.to_monty_int(value)
+
+    def vadd(self, a: Val, b: Val) -> Val:
+        a, b = self._promote(a, b)
+        if a.is_ext:
+            return Val([(x + y) % f.P for x, y in zip(a.arr, b.arr)], True)
+        return Val((a.arr + b.arr) % f.P, False)
+
+    def vsub(self, a: Val, b: Val) -> Val:
+        a, b = self._promote(a, b)
+        if a.is_ext:
+            return Val([(x - y) % f.P for x, y in zip(a.arr, b.arr)], True)
+        return Val((a.arr - b.arr) % f.P, False)
+
+    def vmul(self, a: Val, b: Val) -> Val:
+        if a.is_ext and b.is_ext:
+            return Val(_ext_mul_int(a.arr, b.arr), True)
+        if a.is_ext or b.is_ext:
+            e, c = (a.arr, b.arr) if a.is_ext else (b.arr, a.arr)
+            return Val([x * c * f.R_INV % f.P for x in e], True)
+        return Val(a.arr * b.arr * f.R_INV % f.P, False)
+
+    def vneg(self, a: Val) -> Val:
+        if a.is_ext:
+            return Val([-x % f.P for x in a.arr], True)
+        return Val(-a.arr % f.P, False)
+
+    @staticmethod
+    def _promote(a: Val, b: Val):
+        if a.is_ext == b.is_ext:
+            return a, b
+        if a.is_ext:
+            return a, Val([b.arr, 0, 0, 0], True)
+        return Val([a.arr, 0, 0, 0], True), b
+
+    def alpha_powers(self, alpha, n: int) -> list:
+        alpha = _ints(alpha)
+        out = [[f.ONE, 0, 0, 0]]
+        while len(out) < n:
+            out.append(_ext_mul_int(out[-1], alpha))
+        return out[:n]
+
+    def fold_term(self, acc, v: Val, apow):
+        term = _ext_mul_int(v.arr, apow) if v.is_ext else [x * v.arr * f.R_INV % f.P for x in apow]
+        return term if acc is None else [x + y for x, y in zip(acc, term)]
+
+    def fold_result(self, acc) -> torch.Tensor:
+        return torch.tensor([x % f.P for x in acc], dtype=torch.int32)
+
+
+def _ints(t):
+    """A tensor, array or list of field values as Python ints (nested lists)."""
+    if t is None or isinstance(t, int):
+        return t
+    if isinstance(t, torch.Tensor):
+        return t.tolist()
+    return [int(x) for x in t] if not isinstance(t[0], (list, tuple)) else [_ints(x) for x in t]
+
+
+def _ext_mul_int(a, b) -> list:
+    """Product of two ext values of Montgomery ints (X^4 = 3)."""
+    a0, a1, a2, a3 = a
+    b0, b1, b2, b3 = b
+    c = (
+        a0 * b0 + 3 * (a1 * b3 + a2 * b2 + a3 * b1),
+        a0 * b1 + a1 * b0 + 3 * (a2 * b3 + a3 * b2),
+        a0 * b2 + a1 * b1 + a2 * b0 + 3 * a3 * b3,
+        a0 * b3 + a1 * b2 + a2 * b1 + a3 * b0,
+    )
+    return [x % f.P * f.R_INV % f.P for x in c]
+
+
 def _bcast_base(arr: torch.Tensor) -> torch.Tensor:
     """base (S,) -> (S, 1) so it broadcasts against ext (S, 4)."""
     return arr[..., None] if arr.dim() else arr
+
+
+_CONSTS: dict = {}
+
+
+def _const(value: int, device: torch.device) -> torch.Tensor:
+    """The Montgomery form of a constant as a 0-d tensor on ``device``, made once."""
+    key = (value, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(f.to_monty_int(value), dtype=torch.int32, device=device)
+    return t
+
+
+def _children(e: Expr) -> tuple:
+    if isinstance(e, (Add, Sub, Mul)):
+        return (e.a, e.b)
+    if isinstance(e, Neg):
+        return (e.a,)
+    return ()
+
+
+def _node_value(e: Expr, kids: list, ctx: EvalContext) -> Val:
+    """The value of ``e`` given the values of its children."""
+    if isinstance(e, Const):
+        return Val(ctx.const(e.value), False)
+    if isinstance(e, Var):
+        return Val(ctx.var_fn(e.segment, e.col, e.offset), e.segment == PERM or ctx.ext_mode)
+    if isinstance(e, Selector):
+        return Val(ctx.selectors[e.which], ctx.ext_mode)
+    if isinstance(e, Public):
+        return Val(ctx.publics[e.index], False)
+    if isinstance(e, Challenge):
+        return Val(ctx.challenges[e.index], True)
+    if isinstance(e, CumSumLocal):
+        return Val(ctx.cum_sum, True)
+    if isinstance(e, GlobalSumCoord):
+        return Val(ctx.global_sum[e.index], False)
+    if isinstance(e, Add):
+        return ctx.vadd(*kids)
+    if isinstance(e, Sub):
+        return ctx.vsub(*kids)
+    if isinstance(e, Mul):
+        return ctx.vmul(*kids)
+    if isinstance(e, Neg):
+        return ctx.vneg(*kids)
+    raise TypeError(type(e))
 
 
 def eval_expr(e: Expr, ctx: EvalContext) -> Val:
@@ -447,46 +608,59 @@ def eval_expr(e: Expr, ctx: EvalContext) -> Val:
     hit = ctx.cache.get(k)
     if hit is not None:
         return hit
-    if isinstance(e, Const):
-        v = Val(torch.tensor(f.to_monty_int(e.value), dtype=torch.int32, device=ctx.device), False)
-    elif isinstance(e, Var):
-        v = Val(ctx.var_fn(e.segment, e.col, e.offset), e.segment == PERM or ctx.ext_mode)
-    elif isinstance(e, Selector):
-        v = Val(ctx.selectors[e.which], ctx.ext_mode)
-    elif isinstance(e, Public):
-        v = Val(ctx.publics[e.index], False)
-    elif isinstance(e, Challenge):
-        v = Val(ctx.challenges[e.index], True)
-    elif isinstance(e, CumSumLocal):
-        v = Val(ctx.cum_sum, True)
-    elif isinstance(e, GlobalSumCoord):
-        v = Val(ctx.global_sum[e.index], False)
-    elif isinstance(e, Add):
-        v = ctx.vadd(eval_expr(e.a, ctx), eval_expr(e.b, ctx))
-    elif isinstance(e, Sub):
-        v = ctx.vsub(eval_expr(e.a, ctx), eval_expr(e.b, ctx))
-    elif isinstance(e, Mul):
-        v = ctx.vmul(eval_expr(e.a, ctx), eval_expr(e.b, ctx))
-    elif isinstance(e, Neg):
-        v = ctx.vneg(eval_expr(e.a, ctx))
-    else:
-        raise TypeError(type(e))
+    v = _node_value(e, [eval_expr(c, ctx) for c in _children(e)], ctx)
     ctx.cache[k] = v
     return v
 
 
+def _schedule(roots) -> tuple[list, dict]:
+    """The nodes below ``roots`` in post-order (children first), and for each
+    node the number of its readers: one per parent edge, one per place in
+    ``roots``."""
+    order, readers, seen = [], {}, set()
+    for r in roots:
+        readers[id(r)] = readers.get(id(r), 0) + 1
+    stack = [(r, False) for r in reversed(roots)]
+    while stack:
+        e, expanded = stack.pop()
+        if expanded:
+            order.append(e)
+            continue
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        stack.append((e, True))
+        kids = _children(e)
+        for c in kids:
+            readers[id(c)] = readers.get(id(c), 0) + 1
+        stack.extend((c, False) for c in reversed(kids) if id(c) not in seen)
+    return order, readers
+
+
 def fold_constraints(constraints, alpha: torch.Tensor, ctx: EvalContext) -> torch.Tensor:
     """sum_k alpha^k * C_k as an ext value; the terms are summed in int64 and
-    reduced once."""
-    apows = ext4.powers(alpha.to(ctx.device), len(constraints))
-    acc = None
+    reduced once.
+
+    The DAG is walked once in post-order and a node's value is dropped after
+    its last reader, so the values held at once are the DAG's live set, not
+    every node (a wide chip has tens of thousands of nodes)."""
+    apows = ctx.alpha_powers(alpha, len(constraints))
+    places: dict = {}
     for k, c in enumerate(constraints):
-        v = eval_expr(c, ctx)
-        if v.is_ext:
-            term = ext4.mul(v.arr, apows[k])
-        else:
-            # base constraint times an ext power: 4 base products, not 16
-            term = f.mul(apows[k], _bcast_base(v.arr))
-        term = term.to(torch.int64)
-        acc = term if acc is None else acc + term
-    return f.narrow(acc % f.P)
+        places.setdefault(id(c), []).append(k)
+    order, readers = _schedule(constraints)
+    vals = ctx.cache
+    acc = None
+    for e in order:
+        kids = _children(e)
+        v = _node_value(e, [vals[id(c)] for c in kids], ctx)
+        for c in kids:
+            readers[id(c)] -= 1
+            if not readers[id(c)]:
+                del vals[id(c)]
+        for k in places.get(id(e), ()):
+            acc = ctx.fold_term(acc, v, apows[k])
+            readers[id(e)] -= 1
+        if readers[id(e)]:
+            vals[id(e)] = v
+    return ctx.fold_result(acc)

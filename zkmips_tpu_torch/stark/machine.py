@@ -159,7 +159,8 @@ class StarkMachine:
         with span("prove.trace_gen"):
             raw = {}
             for c in sorted(chips, key=lambda c: bool(getattr(c.air, "trace_consumes_fills", False))):
-                raw[c.name] = np.asarray(c.air.generate_trace(record, None), dtype=np.uint32)
+                with span(f"fill.{c.name}"):
+                    raw[c.name] = np.asarray(c.air.generate_trace(record, None), dtype=np.uint32)
                 note(f"rows.{c.name}", raw[c.name].shape[0])
         with span("prove.upload"):
             shape = None
@@ -417,17 +418,24 @@ def _verify_chip_constraints(chip, ov: ChipOpenedValues, zeta, alpha, perm_chall
     d = Domain(ov.log_degree, 1)
     sels = d.selectors_at_point_ext(zeta)
 
+    # the opened values as Python ints: the DAG is evaluated at one point
+    main = (ov.main_local.tolist(), ov.main_next.tolist())
+    prep = (None, None) if ov.preprocessed_local is None else \
+        (ov.preprocessed_local.tolist(), ov.preprocessed_next.tolist())
+    perm_cols = ov.perm_local.shape[0] // 4
+    perm = tuple([_ext_from_flat(flat[4 * c : 4 * c + 4]).tolist() for c in range(perm_cols)]
+                 for flat in (ov.perm_local, ov.perm_next))
+
     def var_fn(segment, col, offset):
         if segment == air.MAIN:
-            return (ov.main_local if offset == 0 else ov.main_next)[col]
+            return main[offset][col]
         if segment == air.PREPROCESSED:
-            return (ov.preprocessed_local if offset == 0 else ov.preprocessed_next)[col]
+            return prep[offset][col]
         if segment == air.PERM:
-            flat = ov.perm_local if offset == 0 else ov.perm_next
-            return _ext_from_flat(flat[4 * col : 4 * col + 4])
+            return perm[offset][col]
         raise ValueError(segment)
 
-    ctx = air.EvalContext(
+    ctx = air.IntEvalContext(
         var_fn,
         selectors={
             air.Selector.FIRST: sels["is_first_row"],
@@ -438,7 +446,6 @@ def _verify_chip_constraints(chip, ov: ChipOpenedValues, zeta, alpha, perm_chall
         challenges=perm_challenges,
         cum_sum=ov.local_cumulative_sum,
         global_sum=None if ov.global_sum is None else f.to_monty(ov.global_sum),
-        ext_mode=True,
     )
     folded = air.fold_constraints(chip.constraints, alpha, ctx)
 

@@ -6,9 +6,10 @@ constraint sum is evaluated pointwise and divided by the vanishing
 polynomial, and the result is split into 2^lqd stride-interleaved chunks
 (each an (H, 4) base matrix).
 
-The DAG is evaluated over row blocks of the quotient domain, so that the
-cached value of every DAG node holds one block, not the whole domain.  The
-next-row view of a block is the circular slice ``step`` rows further on.
+The DAG is evaluated over row blocks of the quotient domain, so that each
+value ``air.fold_constraints`` holds (a node's, until its last reader) covers
+one block, not the whole domain.  The next-row view of a block is the
+circular slice ``step`` rows further on.
 """
 
 from __future__ import annotations
