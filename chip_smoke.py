@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--keccak-iters N]
-                          [--only-kernels | --only-full]
+    python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--stream-fib-iters N]
+                          [--keccak-iters N] [--only-kernels | --only-full]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -28,9 +28,25 @@
    config on the card (fifteen-chip minimal machine, fixed shapes), and
    checks the proofs, the shard chain and the septic digest sum with
    ``MipsMachine.verify``; a flipped word of a global digest and two
-   swapped proofs must be rejected; a small fib proved on the card and on
-   the CPU must give equal proofs;
-7. the full-machine phase, at full size: the keccak-chain guest of
+   swapped proofs must be rejected; the same guest streamed
+   (``stream_for_proving`` -> ``MipsMachine.prove_streaming``) must give
+   the batch proofs byte for byte through the port's codec; a small fib
+   proved on the card and on the CPU must give equal proofs;
+7. the streaming phase, at full size: the fib guest (``--stream-fib-iters``
+   iterations, default 400,000, about 2,400,000 cycles: three 2^20-cycle
+   shards) streamed from the native executor into ``prove_streaming`` (one
+   worker, pooled trace fills) on the card with the 49-chip machine at the
+   core config; the proofs are encoded by the port's ``encode_core_proof``
+   and ``encode_vk`` and accepted by ``verify_core`` on the bytes, and a
+   flipped byte must be rejected; the kernels' launches over this prove are
+   printed.  Then a small keccak chain with two execution shards and a
+   deferred one is proved in batch and streamed with one and two workers:
+   the bytes must be equal.  Then the synthetic shard of step 4 at the
+   KoalaBear recursion configs (``FriConfig.compressed`` and
+   ``ultra_compressed``, log blowup 2 and 3): proved on the card at 2^16
+   rows and verified, a tampered proof rejected, and at 2^13 rows the
+   card's proof must equal the CPU's;
+8. the full-machine phase, at full size: the keccak-chain guest of
    ``bench.py`` (``--keccak-iters`` iterations, default 2,730: 65,520
    KeccakSponge rows, about 161,000 cycles in one 2^20-cycle shard) runs
    through ``execute_for_proving`` (the Python interpreter: the native
@@ -39,13 +55,14 @@
    word of KeccakSponge's opened values must be rejected; K1 is held
    against its plain version at the widest leaf shape this prove gave it.
    The kernels' launch counts of the ``kernels`` line are those of this
-   prove.  Then the six fixture ELFs of ``tests/fixtures/guests`` are
+   prove; each shard's pooled trace fills are printed in thread seconds
+   beside the wall of ``prove.trace_gen``.  Then the six fixture ELFs of ``tests/fixtures/guests`` are
    loaded, executed, proved on the card at the core config and verified;
    and a guest that gives every one of the 49 chips rows is proved at the
    test config on the card and on the CPU, and the two proofs must be equal.
    ``--only-full`` runs the card line, the build and this phase alone
    (exit code 0, no ``kernels`` line and no last line);
-8. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
+9. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
    and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -94,6 +111,15 @@ N_BYTE_OPS = len(BYTE_OPS)
 FIB_SHARD_CYCLES = 1 << 18  # the shard size of the fib phase
 FULL_SHARD_CYCLES = 1 << 20  # the shard size of the full-machine phase
 KECCAK_SPLIT_THRESHOLD = 1 << 17  # rows of a precompile family kept in one deferred shard
+DEFAULT_SPLIT_THRESHOLD = 1 << 15  # the reference's SPLIT_THRESHOLD default
+SMALL_KECCAK_ITERS = 50  # the streamed-equals-batch keccak chain: 1,200 KeccakSponge rows
+SMALL_KECCAK_SHARD = 1 << 11  # cycles a shard: two execution shards
+# rows of a family a record may keep: shard 1's 32 sponge calls (768 rows)
+# go to one deferred shard, shard 2 keeps its 18
+SMALL_KECCAK_SPLIT = 768
+RECURSION_CONFIGS = ("compressed", "ultra_compressed")  # FriConfig log blowup 2 and 3
+RECURSION_LOG_ROWS = 16  # the synthetic shard proved at them on the card
+RECURSION_CPU_LOG_ROWS = 13  # the synthetic shard proved at them on card and CPU
 FIXTURES = "tests/fixtures/guests"  # the compiled guests, relative to this script
 # io_hints_commit reads two little-endian u32 words from stdin
 IO_HINTS_STDIN = [(0x12345678).to_bytes(4, "little"), (0x0F0F0F0F).to_bytes(4, "little")]
@@ -201,13 +227,13 @@ def _airs():
     return CpuShaped, AddSubShaped, ByteShaped
 
 
-def build_machine():
+def build_machine(config=None):
     from zkmips_tpu_torch.stark.chip import Chip
     from zkmips_tpu_torch.stark.machine import StarkConfig, StarkMachine
 
     cpu, addsub, byte = _airs()
     chips = [Chip(cpu(), 1), Chip(addsub(), 1), Chip(byte(), 1)]
-    return StarkMachine(StarkConfig.core(), chips, num_public_values=1)
+    return StarkMachine(config or StarkConfig.core(), chips, num_public_values=1)
 
 
 def build_record(log_rows: int, seed: int):
@@ -438,6 +464,42 @@ def print_shards(tag: str, proofs, card: str):
             {"card": card, "total_seconds": round(spans[shard][0], 4), "seconds": stages}), flush=True)
 
 
+def print_fills(tag: str, proofs, card: str):
+    """Each shard's trace fills from the pool: the wall of ``prove.trace_gen``
+    beside each chip's fill, in thread seconds (fills run side by side, so
+    their sum can exceed the wall)."""
+    from zkmips_tpu_torch.utils import logger
+
+    spans = logger.spans_report()
+    for proof in proofs:
+        shard = f"shard{int(proof.public_values[0])}"
+        head = f"{shard}/prove.trace_gen"
+        fills = {k[len(head) + len("/fill."):]: round(v[0], 4) for k, v in spans.items()
+                 if k.startswith(head + "/fill.")}
+        if not fills:
+            raise AssertionError(f"{tag}: no fill spans under {head}")
+        fills = dict(sorted(fills.items(), key=lambda kv: -kv[1]))
+        print(f"{tag} {shard} fills: " + json.dumps(
+            {"card": card, "trace_gen_seconds": round(spans[head][0], 4),
+             "fill_thread_seconds_summed": round(sum(fills.values()), 4), "fill_thread_seconds": fills}),
+            flush=True)
+
+
+def expect_byte_rejected(proof_bytes: bytes, vk_bytes: bytes, what: str, tag: str):
+    from zkmips_tpu_torch.stark.machine import VerificationError
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    bad = bytearray(proof_bytes)
+    bad[len(bad) // 2] ^= 1
+    t0 = time.perf_counter()
+    try:
+        codec.verify_core(bytes(bad), vk_bytes)
+    except (VerificationError, codec.CodecError) as e:
+        print(f"{tag} {what} rejected by verify_core in {time.perf_counter() - t0:.3f} s: {e}", flush=True)
+    else:
+        raise AssertionError(f"{tag}: {what} was accepted by verify_core")
+
+
 def expect_rejected(machine, vk, proofs, program, what: str, tag: str = "mips"):
     from zkmips_tpu_torch.stark.machine import VerificationError
 
@@ -455,11 +517,12 @@ def mips_phase(args, dev, card: str) -> dict:
     import copy
 
     from zkmips_tpu_torch import convert
-    from zkmips_tpu_torch.executor import execute_for_proving, native_trace
+    from zkmips_tpu_torch.executor import execute_for_proving, native_trace, stream_for_proving
     from zkmips_tpu_torch.machine.machine import mips_machine
     from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.stark.machine import StarkConfig
     from zkmips_tpu_torch.utils import logger
+    from zkmips_tpu_torch.verifier import stark_codec as codec
 
     t0 = time.perf_counter()
     lib = native_trace.library()
@@ -509,7 +572,20 @@ def mips_phase(args, dev, card: str) -> dict:
     gs[0] ^= 1
     expect_rejected(machine, pk.vk, bad, program, "flipped word of a global digest")
     expect_rejected(machine, pk.vk, [proofs[1], proofs[0], *proofs[2:]], program, "swapped proofs")
-    del proofs, bad, pk, records
+    batch_bytes = codec.encode_core_proof(proofs)
+    del proofs, bad, records
+
+    # the same guest streamed: the proofs must be the batch's, byte for byte
+    t0 = time.perf_counter()
+    streamed = machine.prove_streaming(pk, stream_for_proving(program, shard_size=FIB_SHARD_CYCLES),
+                                       split_threshold=DEFAULT_SPLIT_THRESHOLD)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    if codec.encode_core_proof(streamed) != batch_bytes:
+        raise AssertionError("mips: the streamed proofs differ from the batch proofs")
+    print(f"mips streamed: {len(streamed)} shard proofs equal the batch proofs byte for byte "
+          f"({len(batch_bytes)} bytes), streamed in {stream_s:.3f} s [{card}]", flush=True)
+    del streamed, pk
 
     # a small fib on the card and on the CPU must give the same proofs
     t0 = time.perf_counter()
@@ -578,6 +654,7 @@ def keccak_phase(args, dev, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
     print_shards("keccak", proofs, card)
+    print_fills("keccak", proofs, card)
     print(f"keccak prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
           f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
           f"[{card}]", flush=True)
@@ -692,6 +769,150 @@ def every_chip_phase(dev, card: str):
     print(f"every-chip guest: card and CPU proofs equal, {len(names)} chips", flush=True)
 
 
+def stream_phase(args, dev, card: str) -> dict:
+    """The streaming path at full size: the fib guest (``--stream-fib-iters``)
+    executed by ``stream_for_proving`` in 2^20-cycle shards and proved as the
+    records arrive by ``MipsMachine.prove_streaming`` (one worker, pooled
+    fills) on the card; the proofs are encoded with the port's codec and
+    accepted by ``verify_core`` on the bytes, and a flipped byte must be
+    rejected.  Returns the kernels' launch counts over the streamed prove."""
+    from zkmips_tpu_torch.executor import stream_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    program = fib_program(args.stream_fib_iters)
+    machine = mips_machine(StarkConfig.core())
+    pk = machine.setup(program)
+    torch.cuda.synchronize()
+    produced = {"seconds": 0.0, "cycles": 0, "records": 0}
+
+    def timed(stream):
+        """The executor's own time: spent producing each record."""
+        while True:
+            t = time.perf_counter()
+            try:
+                r = next(stream)
+            except StopIteration:
+                return
+            finally:
+                produced["seconds"] += time.perf_counter() - t
+            produced["cycles"] += len(r.cpu_events)
+            produced["records"] += 1
+            yield r
+
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    proofs = machine.prove_streaming(pk, timed(stream_for_proving(program, shard_size=FULL_SHARD_CYCLES)),
+                                     workers=1, split_threshold=DEFAULT_SPLIT_THRESHOLD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    cycles = produced["cycles"]
+    if len(proofs) != produced["records"] or len(proofs) < 3:
+        raise AssertionError(f"stream: {len(proofs)} proofs of {produced['records']} records, not 3 or more")
+    print(f"stream fib: {cycles} cycles, {len(proofs)} shards of up to {FULL_SHARD_CYCLES} cycles, "
+          f"executor {produced['seconds']:.3f} s, streamed prove wall {wall:.3f} s, "
+          f"{cycles / wall:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB, "
+          f"one worker [{card}]", flush=True)
+    print(f"stream launches over prove_streaming: {launches} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    proof_bytes = codec.encode_core_proof(proofs)
+    vk_bytes = codec.encode_vk(pk.vk, program.pc_start)
+    enc_s = time.perf_counter() - t0
+    del proofs, pk
+    t0 = time.perf_counter()
+    assert codec.verify_core(proof_bytes, vk_bytes)
+    print(f"stream bytes: {len(proof_bytes)} proof bytes, {len(vk_bytes)} vk bytes, encoded in "
+          f"{enc_s:.3f} s, accepted by verify_core in {time.perf_counter() - t0:.3f} s", flush=True)
+    expect_byte_rejected(proof_bytes, vk_bytes, "proof with a flipped byte", "stream")
+    return launches
+
+
+def stream_keccak_phase(dev, card: str):
+    """A small keccak chain with deferred shards: ``prove_streaming`` with one
+    and two workers must give the batch proofs byte for byte, shard
+    numbers and chained public values of the deferred shards included."""
+    from zkmips_tpu_torch.executor import execute_for_proving, guests, stream_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    program = guests.keccak_chain_program(SMALL_KECCAK_ITERS)
+    machine = mips_machine(StarkConfig.core())
+    pk = machine.setup(program)
+    t0 = time.perf_counter()
+    records, _ = execute_for_proving(program, shard_size=SMALL_KECCAK_SHARD)
+    shards = machine.split_deferred(records, split_threshold=SMALL_KECCAK_SPLIT)
+    batch = [machine.prove_record(pk, r) for r in shards]  # prove's own steps
+    n_exec = len(records)
+    if n_exec < 2 or len(batch) == n_exec:
+        raise AssertionError(f"stream keccak: {n_exec} execution and {len(batch) - n_exec} deferred "
+                             "shards, not two and one or more")
+    batch_bytes = codec.encode_core_proof(batch)
+    assert codec.verify_core(batch_bytes, codec.encode_vk(pk.vk, program.pc_start))
+    print(f"stream keccak batch: {n_exec} execution + {len(batch) - n_exec} deferred shards, "
+          f"shard numbers {[int(p.public_values[0]) for p in batch]}, proved and verified in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    del batch, records, shards
+    for workers in (1, 2):
+        t0 = time.perf_counter()
+        proofs = machine.prove_streaming(pk, stream_for_proving(program, shard_size=SMALL_KECCAK_SHARD),
+                                         workers=workers, max_inflight=2,
+                                         split_threshold=SMALL_KECCAK_SPLIT)
+        if codec.encode_core_proof(proofs) != batch_bytes:
+            raise AssertionError(f"stream keccak: {workers} worker(s) gave other proofs than batch")
+        print(f"stream keccak, {workers} worker(s): {len(proofs)} proofs equal the batch's byte for "
+              f"byte, {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+
+
+def recursion_configs_phase(args, dev, card: str):
+    """The synthetic shard at the KoalaBear recursion configs (log blowup 2
+    and 3): proved on the card and verified at 2^16 rows, a tampered proof
+    rejected; at 2^13 rows the card's proof must equal the CPU's."""
+    from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
+    from zkmips_tpu_torch.stark.pcs import FriConfig
+
+    for name in RECURSION_CONFIGS:
+        fri = getattr(FriConfig, name)()
+        machine = build_machine(StarkConfig(fri))
+        record, pv = build_record(RECURSION_LOG_ROWS, args.seed + 7)
+        pk = machine.setup(None)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = machine.prove_shard(pk, record, pv)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        assert machine.verify_shard(pk.vk, proof)
+        proof.fri_proof.final_poly[0] ^= 1
+        try:
+            machine.verify_shard(pk.vk, proof)
+        except VerificationError:
+            pass
+        else:
+            raise AssertionError(f"{name}: a tampered proof was accepted")
+        print(f"config {name} (log blowup {fri.log_blowup}, {fri.num_queries} queries): synthetic shard "
+              f"at 2^{RECURSION_LOG_ROWS} rows proved in {prove_s:.3f} s, peak device memory "
+              f"{peak_gb:.2f} GiB, {len(proof.fri_proof.commit_roots)} FRI layers, verified, "
+              f"tampered proof rejected [{card}]", flush=True)
+        del proof, pk, record
+        small, small_pv = build_record(RECURSION_CPU_LOG_ROWS, args.seed + 8)
+        t0 = time.perf_counter()
+        on_card = small_proof(machine, small, small_pv, dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = small_proof(machine, small, small_pv, "cpu")
+        if not _same(on_card, on_cpu):
+            raise AssertionError(f"{name}: the card's proof differs from the CPU's")
+        print(f"config {name}: card and CPU proofs at 2^{RECURSION_CPU_LOG_ROWS} rows equal "
+              f"(card {card_s:.1f} s, CPU {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def full_phase(args, dev, card: str) -> dict:
     launches = keccak_phase(args, dev, card)
     elf_phase(dev, card)
@@ -706,6 +927,8 @@ def main() -> int:
                     help="log2 rows of the synthetic shard's Cpu/AddSub-shaped chips")
     ap.add_argument("--fib-iters", type=int, default=60_000,
                     help="iterations of the fib phase's guest (6 cycles each)")
+    ap.add_argument("--stream-fib-iters", type=int, default=400_000,
+                    help="iterations of the streaming phase's fib guest (6 cycles each)")
     ap.add_argument("--keccak-iters", type=int, default=2730,
                     help="iterations of the full-machine phase's keccak-chain guest (24 KeccakSponge rows each)")
     only = ap.add_mutually_exclusive_group()
@@ -809,6 +1032,11 @@ def main() -> int:
     for name, n in mips_phase(args, dev, card).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the fib path")
+    for name, n in stream_phase(args, dev, card).items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the streaming path")
+    stream_keccak_phase(dev, card)
+    recursion_configs_phase(args, dev, card)
     for name, n in full_phase(args, dev, card).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the keccak path")

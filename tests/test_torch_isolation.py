@@ -38,6 +38,31 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
+@pytest.mark.parametrize("sub", ["verifier", "guest"])
+def test_new_subpackages_are_covered(sub):
+    files = [p for p in _port_files() if p.parent.name == sub]
+    assert len(files) >= 2
+    assert [n for p in files for n in _imported_top_levels(p) if n in FORBIDDEN] == []
+
+
+def test_port_modules_load_without_jax():
+    """Importing every module of the port leaves JAX and the reference
+    package out of ``sys.modules``."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in _port_files() if p.name != "chip_smoke.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present, so the default device is valid")
@@ -71,7 +96,10 @@ def test_mips_entry_points_raise_without_gpu():
         machine.prove_record(None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         prove_program(program, machine=machine)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.prove_streaming(None, iter(()))
     assert machine.setup(program, device="cpu").device == torch.device("cpu")
+    assert machine.prove_streaming(None, iter(()), device="cpu") == []
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -28,6 +28,7 @@ __all__ = [
     "SyscallCode",
     "decode_instruction",
     "execute_for_proving",
+    "stream_for_proving",
 ]
 
 
@@ -75,3 +76,44 @@ def execute_for_proving(program, stdin_bufs=(), proof_stream=(), shard_size: int
         "executor": "interpreter",
     }
     return records, info
+
+
+def stream_for_proving(program, stdin_bufs=(), shard_size: int = 1 << 20,
+                       max_cycles: int | None = None):
+    """Streaming twin of :func:`execute_for_proving`: an iterator of records
+    for ``MipsMachine.prove_streaming``, each yielded the moment its shard
+    boundary is crossed.
+
+    The native trace-mode executor runs first.  If it raises
+    ``NativeUnsupported``, the guest is executed again from the start by
+    the Python interpreter, which skips the records already yielded (the
+    two executors emit equal records up to the unsupported syscall).  Any
+    other failure of the native path (a failed ``cc`` build included)
+    raises.
+    """
+    from . import native_trace
+
+    def python_stream(skip: int = 0):
+        ex = Executor(program, shard_size=shard_size)
+        for buf in stdin_bufs:
+            ex.write_stdin(buf)
+        for i, r in enumerate(ex.run_stream(max_cycles)):
+            if i >= skip:
+                yield r
+
+    def hybrid():
+        yielded = 0
+        try:
+            stream = native_trace.run_trace_stream(
+                program, stdin=stdin_bufs, shard_size=shard_size,
+                max_cycles=max_cycles if max_cycles is not None else 1 << 40,
+            )
+            for r in stream:
+                yielded += 1
+                yield r
+            if stream.info["hit_max_cycles"]:
+                raise ExecutionError(f"exceeded max_cycles {max_cycles}")
+        except NativeUnsupported:
+            yield from python_stream(skip=yielded)
+
+    return hybrid()

@@ -8,7 +8,11 @@
 * ``every_chip_program``: a guest that makes each of the 49 chips of the full
   machine non-empty: the all-opcodes body, the sha, keccak and Poseidon2
   syscalls, every EC / fp-tower / uint256 syscall and emulated Linux
-  syscalls.
+  syscalls;
+* ``keccak_message_program``, ``sha256_message_program``,
+  ``poseidon2_program``: the reference's precompile examples
+  (``examples/{keccak,sha256,poseidon2}_precompile.py``), one syscall each
+  over a given input; the shape corpus (``machine/shape_gen.py``) runs them.
 
 The bodies are lists of instructions; the ``*_program`` helpers append the
 halt sequence.
@@ -240,3 +244,34 @@ def every_chip_program():
     """A guest for which every chip of the full machine has rows."""
     return program(all_ops_body() + sha_body(0x8000, 0x9000) + keccak_body(0xA000, 0xB000)
                    + poseidon2_body(0xC000) + ec_body() + linux_body())
+
+
+def keccak_message_program(data: bytes):
+    """keccak256 of ``data`` in one KECCAK_SPONGE call: the message padded
+    to 136-byte rate blocks, each followed by two state words."""
+    padded = bytearray(data) + bytearray(136 - len(data) % 136)
+    padded[len(data)] = 0x01
+    padded[-1] |= 0x80
+    words = []
+    for blk in range(0, len(padded), 136):
+        words += [int.from_bytes(padded[blk + i : blk + i + 4], "little")
+                  for i in range(0, 136, 4)] + [0, 0]
+    body = store(0x2000, words) + store(0x3000 + 64, [len(words)])
+    body += call(C.KECCAK_SPONGE, 0x2000, 0x3000)
+    return program(body)
+
+
+def sha256_message_program(msg: bytes):
+    """SHA-256 of a one-block ``msg`` (at most 55 bytes): SHA_EXTEND, then
+    SHA_COMPRESS into the state at 0x3000."""
+    assert len(msg) <= 55, "single-block message"
+    padded = msg + b"\x80" + b"\x00" * (55 - len(msg)) + (len(msg) * 8).to_bytes(8, "big")
+    w_words = [int.from_bytes(padded[i : i + 4], "big") for i in range(0, 64, 4)]
+    body = store(0x2000, w_words) + store(0x3000, SHA256_H0)
+    body += call(C.SHA_EXTEND, 0x2000, 0) + call(C.SHA_COMPRESS, 0x2000, 0x3000)
+    return program(body)
+
+
+def poseidon2_program(vals):
+    """One POSEIDON2_PERMUTE of the 16 words ``vals`` in place at 0x2000."""
+    return program(store(0x2000, vals) + call(C.POSEIDON2_PERMUTE, 0x2000, 0))

@@ -191,20 +191,7 @@ class MipsMachine:
         deferred = []
         for r in records:
             deferred.extend(r.split(False, split_threshold))
-        # deferred shards are appended after the final execution shard: their
-        # chained public values (digests, addr endpoints) must carry the final
-        # shard's values unchanged (verify.rs non-cpu-shard transition rules)
-        tail = records[-1].public_values
-        for j, d in enumerate(deferred):
-            d.shard = len(records) + 1 + j
-            pv = d.public_values
-            pv.shard = d.shard
-            pv.execution_shard = tail.execution_shard
-            pv.exit_code = tail.exit_code
-            pv.committed_value_digest = list(tail.committed_value_digest)
-            pv.deferred_proofs_digest = list(tail.deferred_proofs_digest)
-            pv.prev_init_addr = pv.last_init_addr = tail.last_init_addr
-            pv.prev_finalize_addr = pv.last_finalize_addr = tail.last_finalize_addr
+        _chain_deferred(deferred, len(records), records[-1].public_values)
         return records + deferred
 
     def prove(self, pk, records: list, device=None, workers: int | None = None) -> list:
@@ -215,9 +202,8 @@ class MipsMachine:
         release the GIL, so host trace generation overlaps device proving);
         the default is one shard at a time, since two shards in flight
         double the peak device memory.  Proof bytes do not depend on the
-        placement.  The tracing spans of ``utils/logger`` share one stack,
-        so measure with one worker.  Shard-parallel proving across several
-        GPUs and the streaming variant are not ported yet."""
+        placement.  Shard-parallel proving across several GPUs is not
+        ported yet."""
         device = resolve_device(device)
         records = self.split_deferred(records)
         if workers is None or workers <= 1 or len(records) <= 1:
@@ -227,6 +213,59 @@ class MipsMachine:
         with make_pool(workers) as pool:
             futs = [pool.submit(self.prove_record, pk, r, device) for r in records]
             return [f.result() for f in futs]
+
+    def prove_streaming(self, pk, record_iter, device=None, workers: int = 1,
+                        max_inflight: int = 3, split_threshold: int | None = None) -> list:
+        """Streaming prove: consume records as the executor produces them
+        (``executor.stream_for_proving``) and prove them in a bounded worker
+        pool -- the analog of the reference's checkpoint-channel pipeline
+        (crates/core/machine/src/utils/prove.rs:157-520).  At most
+        ``max_inflight`` unproven records are held at once, so peak host
+        memory stays flat as the cycle count grows; precompile families
+        split into deferred shards that are numbered and proved after the
+        execution stream ends, with the public values ``split_deferred``
+        gives them.  The proofs equal ``prove``'s.
+
+        Shards are proved on ``device`` (CUDA unless the caller names
+        another).  ``workers`` defaults to 1: one keccak shard peaks at about
+        33 GiB of device memory and two in flight double it.  With one
+        worker the executor, running in the caller's thread, still overlaps
+        the proving in the pool."""
+        import threading
+
+        from ..utils.pool import make_pool
+
+        device = resolve_device(device)
+        if split_threshold is None:
+            from ..utils.opts import ZKMCoreOpts
+
+            split_threshold = ZKMCoreOpts.default().split_threshold
+        sem = threading.Semaphore(max_inflight)
+
+        def prove_one(r):
+            try:
+                return self.prove_record(pk, r, device=device)
+            finally:
+                sem.release()
+
+        futures = []
+        deferred: list = []
+        tail = None
+        with make_pool(max(workers, 1)) as pool:
+            for r in record_iter:
+                deferred.extend(r.split(False, split_threshold))
+                tail = r
+                sem.acquire()
+                futures.append(pool.submit(prove_one, r))
+            n_exec = len(futures)
+            # deferred shards follow the final execution shard with chained
+            # public values (the rules of split_deferred)
+            if deferred:
+                _chain_deferred(deferred, n_exec, tail.public_values)
+            for d in deferred:
+                sem.acquire()
+                futures.append(pool.submit(prove_one, d))
+            return [f.result() for f in futures]
 
     # ----------------------------------------------------------------- verify
 
@@ -339,6 +378,23 @@ class MipsMachine:
                 gs = [int(v) for v in ov.global_sum.tolist()]
                 return (gs[:7], gs[7:])
         raise VerificationError("proof missing Global chip")
+
+
+def _chain_deferred(deferred: list, n_exec: int, tail):
+    """Number the deferred shards after the ``n_exec`` execution shards:
+    their chained public values (digests, addr endpoints) carry the final
+    execution shard's ``tail`` unchanged (verify.rs non-cpu-shard
+    transition rules)."""
+    for j, d in enumerate(deferred):
+        d.shard = n_exec + 1 + j
+        pv = d.public_values
+        pv.shard = d.shard
+        pv.execution_shard = tail.execution_shard
+        pv.exit_code = tail.exit_code
+        pv.committed_value_digest = list(tail.committed_value_digest)
+        pv.deferred_proofs_digest = list(tail.deferred_proofs_digest)
+        pv.prev_init_addr = pv.last_init_addr = tail.last_init_addr
+        pv.prev_finalize_addr = pv.last_finalize_addr = tail.last_finalize_addr
 
 
 def _start_point():

@@ -22,6 +22,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -36,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"poseidon2_hash_rows": 0, "poseidon2_compress": 0, "poseidon2_permute": 0}
+_COUNT_LOCK = threading.Lock()  # shards proved in several threads launch side by side
 
 _LIB = None
 _CONSTANTS_ON: set = set()  # device indices whose constant memory is loaded
@@ -192,7 +194,8 @@ def _launch(name: str, fn: str, out: torch.Tensor, *args):
     lib = _ready(out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     _check(lib, getattr(lib, fn)(*args, out.data_ptr(), stream), name)
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
     return out
 
 

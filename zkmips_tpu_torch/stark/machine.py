@@ -43,6 +43,16 @@ class StarkConfig:
     def test() -> "StarkConfig":
         return StarkConfig(FriConfig.test())
 
+    def challenger(self) -> DuplexChallenger:
+        """A fresh transcript for the config's hash family (KoalaBear: a
+        ``FriConfig`` of another family does not construct)."""
+        return DuplexChallenger()
+
+    def zero_digest(self) -> torch.Tensor:
+        """The digest of an empty commitment (the perm root of a shard
+        without lookups)."""
+        return torch.zeros(8, dtype=torch.int32)
+
 
 @dataclass
 class VerifyingKey:
@@ -141,6 +151,37 @@ class StarkMachine:
 
     # ------------------------------------------------------------------ prove
 
+    def fill_traces(self, chips: list, record) -> dict:
+        """{chip name: canonical uint32 main trace} of ``chips`` for
+        ``record``, on the host.
+
+        Fills run in a thread pool (numpy and the C helpers release the
+        GIL) when there are more than three.  Chips that consume other
+        fills' side outputs (the Byte chip reads the byte-lookup arrays every
+        ALU fill appends) run after the producers.  The byte-lookup list
+        order is thread-dependent but its multiset -- all the Byte chip
+        reads -- is not.  Each fill is timed as ``fill.<chip>`` under the
+        caller's span path."""
+        from ..utils.logger import current_path, span
+
+        parent = current_path()
+
+        def fill(c):
+            with span(f"fill.{c.name}", parent=parent):
+                return c.name, np.asarray(c.air.generate_trace(record, None), dtype=np.uint32)
+
+        producers = [c for c in chips if not getattr(c.air, "trace_consumes_fills", False)]
+        consumers = [c for c in chips if getattr(c.air, "trace_consumes_fills", False)]
+        if len(producers) > 3:
+            from ..utils.pool import make_pool
+
+            with make_pool(min(8, len(producers))) as tp:
+                raw = dict(tp.map(fill, producers))
+        else:
+            raw = dict(map(fill, producers))
+        raw.update(map(fill, consumers))
+        return raw
+
     def prove_shard(self, pk: ProvingKey, record, public_values, device=None) -> ShardProof:
         """Prove one shard; ``record`` is passed opaquely to the chips."""
         from ..utils.logger import note, span
@@ -153,15 +194,10 @@ class StarkMachine:
             assert self.chip_map[name] in chips, f"preprocessed chip {name} must be included"
         public_values = torch.as_tensor(np.asarray(public_values, dtype=np.uint32).view(np.int32))
 
-        # Chips that consume other fills' side outputs (the Byte chip reads
-        # the byte-lookup arrays every ALU fill appends) run after the
-        # producers, whatever the order of the chip list.
         with span("prove.trace_gen"):
-            raw = {}
-            for c in sorted(chips, key=lambda c: bool(getattr(c.air, "trace_consumes_fills", False))):
-                with span(f"fill.{c.name}"):
-                    raw[c.name] = np.asarray(c.air.generate_trace(record, None), dtype=np.uint32)
-                note(f"rows.{c.name}", raw[c.name].shape[0])
+            raw = self.fill_traces(chips, record)
+            for n, t in raw.items():
+                note(f"rows.{n}", t.shape[0])
         with span("prove.upload"):
             shape = None
             if self.shape_config is not None:
@@ -187,7 +223,7 @@ class StarkMachine:
         names = [c.name for c in chips]
         log_degrees = {n: traces[n].shape[0].bit_length() - 1 for n in names}
 
-        ch = DuplexChallenger()
+        ch = self.config.challenger()
         pk.vk.observe_into(ch)
         ch.observe_slice(public_values)
 
@@ -301,7 +337,7 @@ class StarkMachine:
 
         return ShardProof(
             main_root=main_data.root,
-            perm_root=torch.zeros(8, dtype=torch.int32) if perm_data is None else perm_data.root,
+            perm_root=self.config.zero_digest() if perm_data is None else perm_data.root,
             quotient_root=quotient_data.root,
             chip_names=names,
             opened=opened,
@@ -313,7 +349,7 @@ class StarkMachine:
 
     def verify_shard(self, vk: VerifyingKey, proof: ShardProof):
         """Check a shard proof on the host; raises VerificationError."""
-        ch = DuplexChallenger()
+        ch = self.config.challenger()
         vk.observe_into(ch)
         if proof.public_values.shape[0] != self.num_public_values:
             raise VerificationError("wrong number of public values")

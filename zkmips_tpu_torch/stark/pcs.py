@@ -32,13 +32,39 @@ from .domain import Domain, fold_inv_2x_monty, lde_points_bitrev_monty
 
 @dataclass(frozen=True)
 class FriConfig:
+    """FRI parameters, the reference's values (kb31_poseidon2.rs:54-63,203-240).
+
+    ``hash_family`` names the Merkle and transcript hash: ``"kb"``
+    (Poseidon2 over KoalaBear) is the one the port has; ``"bn254"`` (the
+    wrap stage's outer config) is not ported and raises."""
+
     log_blowup: int = 1
     num_queries: int = 84
     proof_of_work_bits: int = 16
+    hash_family: str = "kb"
+
+    def __post_init__(self):
+        if self.hash_family == "bn254":
+            raise NotImplementedError(
+                "hash family 'bn254': the BN254 outer config is not ported "
+                "(ROADMAP queue 1 item 7a)"
+            )
+        if self.hash_family != "kb":
+            raise ValueError(f"unknown hash family {self.hash_family!r}")
 
     @staticmethod
     def core() -> "FriConfig":
         return FriConfig(1, 84, 16)
+
+    @staticmethod
+    def compressed() -> "FriConfig":
+        """The recursion prover's config: blowup 4, 42 queries."""
+        return FriConfig(2, 42, 16)
+
+    @staticmethod
+    def ultra_compressed() -> "FriConfig":
+        """The shrink stage's config: blowup 8, 28 queries."""
+        return FriConfig(3, 28, 16)
 
     @staticmethod
     def test() -> "FriConfig":
