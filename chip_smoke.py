@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--stream-fib-iters N]
-                          [--keccak-iters N] [--only-kernels | --only-full]
+                          [--keccak-iters N] [--ladder-fib-iters N]
+                          [--only-kernels | --only-full | --only-recursion]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -47,8 +48,8 @@
    rows and verified, a tampered proof rejected, and at 2^13 rows the
    card's proof must equal the CPU's;
 8. the full-machine phase, at full size: the keccak-chain guest of
-   ``bench.py`` (``--keccak-iters`` iterations, default 2,730: 65,520
-   KeccakSponge rows, about 161,000 cycles in one 2^20-cycle shard) runs
+   ``bench.py`` (``--keccak-iters`` iterations, default 1,365: 32,760
+   KeccakSponge rows, about 79,000 cycles in one 2^20-cycle shard) runs
    through ``execute_for_proving`` (the Python interpreter: the native
    executor has no precompiles), is proved by ``mips_machine()`` (the 49
    chips, core config, fixed shapes) on the card and verified; a flipped
@@ -62,8 +63,36 @@
    test config on the card and on the CPU, and the two proofs must be equal.
    ``--only-full`` runs the card line, the build and this phase alone
    (exit code 0, no ``kernels`` line and no last line);
-9. prints one JSON line with every kernel's record (``{"kernels": [...]}``)
-   and, last, ``{"ok": true, "device": {...}}``.
+9. the recursion phase, at full width: the fib guest (``--ladder-fib-iters``
+   iterations, default 180,000: two 2^20-cycle shards) proved by the
+   49-chip machine at the core config, then each shard lifted, the pair
+   joined by a compress program, shrunk (log blowup 2, 42 queries) and
+   wrapped (the BN254 outer config: log blowup 4, 21 queries, 16 PoW bits)
+   by ``RecursionProver`` on the card; every stage is accepted by
+   ``verify_compressed`` before and after its bytes
+   (``encode_compressed_proof``) are decoded; a flipped byte and a tampered
+   public value of the final record must be rejected.  Each stage prints
+   its parts (circuit build, setup, execute on the C runtime, fills,
+   prove), the recursion proofs' chip heights, peak device memory, proof
+   bytes and the kernels' launches (the wrap's BN254 Merkle hashing and
+   grind run on the host, in C and Python, as in the reference).  Then, at
+   the test config, a two-shard guest's lifts and compress pair proved on
+   the card and on the CPU must give equal bytes, and the deferred chain
+   (guest A compressed, guest B verifying it in the VM,
+   ``prove_deferred`` -> ``verify_deferred``) runs on the card.
+   ``--only-recursion`` runs the card line, the build and this phase alone
+   (exit code 0, no ``kernels`` line and no last line);
+10. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
+   with the ladder's launches per stage) and, last,
+   ``{"ok": true, "device": {...}}``.
+
+The CPU halves of the card = CPU checks (the small shard, the small fib,
+the recursion configs, the every-chip guest, the small ladder) run in a
+second process of this script, started after the card line, while the
+card runs its phases; each phase waits for its CPU proof's bytes and
+compares them with the card's, and the process's times are printed before
+the ``kernels`` line.  The process is waited for (or stopped, after an
+``--only-*`` part or a failure) before the script exits.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when the package is missing, or when any phase fails.
@@ -74,6 +103,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -414,22 +444,95 @@ def print_kernels(records: dict):
     ]}), flush=True)
 
 
-def small_proof(machine, record, pv, device) -> dict:
-    """Setup + prove_shard on ``device``; the proof as numpy fields."""
-    from zkmips_tpu_torch import convert
+def small_proof(machine, record, pv, device) -> bytes:
+    """Setup + prove_shard on ``device``; the proof's bytes (every field,
+    through the port's codec)."""
+    from zkmips_tpu_torch.verifier import stark_codec as codec
 
     pk = machine.setup(None, device=device)
-    return convert.shard_proof_to_numpy(machine.prove_shard(pk, record, pv, device=device))
+    return codec.encode_core_proof([machine.prove_shard(pk, record, pv, device=device)], config="test")
 
 
-def _same(a, b) -> bool:
-    if isinstance(a, dict):
-        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
-    if isinstance(a, (list, tuple)):
-        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
-    if isinstance(a, np.ndarray):
-        return np.array_equal(a, b)
-    return a == b
+class CpuSide:
+    """The CPU halves of the card = CPU checks, made by a second process of
+    this script (``--cpu-side DIR``) while this one runs the card's phases:
+    each result is a file of proof bytes, ``DIR/<name>.bin``, which the
+    phase that needs it waits for and compares with the card's.  The
+    process's own lines (its times) are printed by ``close``."""
+
+    def __init__(self, args):
+        self.dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cpu")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        self.log = open(os.path.join(self.dir, "cpu_side.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-side", self.dir, "--seed", str(args.seed)],
+            stdout=self.log, stderr=subprocess.STDOUT,
+        )
+
+    def get(self, name: str) -> bytes:
+        path = os.path.join(self.dir, f"{name}.bin")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                raise AssertionError(f"the CPU side exited with {self.proc.returncode} before {name}: "
+                                     + self._tail())
+            time.sleep(0.2)
+        waited = time.perf_counter() - t0
+        if waited > 1:
+            print(f"cpu side: waited {waited:.1f} s for {name}", flush=True)
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    def _tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name) as fh:
+            return fh.read()[-2000:]
+
+    def close(self, finished: bool):
+        """Wait for the process when every result was read (its exit code
+        must be 0), else stop it; print its lines.  Once."""
+        if self.log.closed:
+            return
+        if finished:
+            if self.proc.wait(timeout=600) != 0:
+                raise AssertionError(f"the CPU side exited with {self.proc.returncode}: " + self._tail())
+        elif self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        with open(self.log.name) as fh:
+            for line in fh:
+                if line.startswith("cpu side"):
+                    print(line.rstrip(), flush=True)
+
+
+def cpu_side(out: str, seed: int):
+    """The CPU halves of the card = CPU checks, in the order the card's
+    phases need them; each written to ``out`` as soon as it is made."""
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.stark.pcs import FriConfig
+
+    torch.set_num_threads(4)
+
+    def put(name: str, make):
+        t0 = time.perf_counter()
+        data = make()
+        tmp = os.path.join(out, f".{name}.tmp")
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+        os.replace(tmp, os.path.join(out, f"{name}.bin"))
+        print(f"cpu side: {name} proved on the CPU in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    small, small_pv = build_record(8, seed + 1)
+    put("small_shard", lambda: small_proof(build_machine(), small, small_pv, "cpu"))
+    put("mips_small_fib", lambda: small_fib_bytes("cpu"))
+    for name in RECURSION_CONFIGS:
+        rec, pv = build_record(RECURSION_CPU_LOG_ROWS, seed + 8)
+        machine = build_machine(StarkConfig(getattr(FriConfig, name)()))
+        put(f"config_{name}", lambda: small_proof(machine, rec, pv, "cpu"))
+    put("every_chip", lambda: every_chip_bytes("cpu", None)[0])
+    put("ladder_small", lambda: small_ladder_bytes("cpu"))
 
 
 def fib_program(n_iters: int):
@@ -511,12 +614,11 @@ def expect_rejected(machine, vk, proofs, program, what: str, tag: str = "mips"):
         raise AssertionError(f"{tag}: {what} was accepted")
 
 
-def mips_phase(args, dev, card: str) -> dict:
+def mips_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     """Execute, prove and verify the fib guest; returns the kernels' launch
     counts over ``MipsMachine.prove``."""
     import copy
 
-    from zkmips_tpu_torch import convert
     from zkmips_tpu_torch.executor import execute_for_proving, native_trace, stream_for_proving
     from zkmips_tpu_torch.machine.machine import mips_machine
     from zkmips_tpu_torch.ops import poseidon2_cuda
@@ -589,22 +691,31 @@ def mips_phase(args, dev, card: str) -> dict:
 
     # a small fib on the card and on the CPU must give the same proofs
     t0 = time.perf_counter()
-    small = fib_program(300)  # 1810 cycles: two shards of up to 2^10
-
-    def prove_small(device):
-        recs, _ = execute_for_proving(small, shard_size=1 << 10)
-        spk = machine.setup(small, device=device)
-        return [convert.shard_proof_to_numpy(p) for p in machine.prove(spk, recs, device=device)]
-
-    on_card, on_cpu = prove_small(dev), prove_small("cpu")
-    sums = [o["global_sum"] for p in on_card for n, o in zip(p["chip_names"], p["opened"]) if n == "Global"]
-    if len(on_card) < 2 or len(sums) != len(on_card) or any(g is None for g in sums):
-        raise AssertionError("mips: the small fib did not give two shards with global sums")
-    if not _same(on_card, on_cpu):
+    on_card = small_fib_bytes(dev)
+    if on_card != cpu.get("mips_small_fib"):
         raise AssertionError("mips: the card's proofs of the small fib differ from the CPU's")
-    print(f"mips small fib: card and CPU proofs of {len(on_card)} shards equal "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"mips small fib: card and CPU proofs of two shards equal ({len(on_card)} bytes; card "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     return launches
+
+
+def small_fib_bytes(device) -> bytes:
+    """The small fib (1810 cycles, two shards of up to 2^10) proved on
+    ``device`` by the fifteen-chip machine at the core config: its bytes."""
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    machine = mips_machine(StarkConfig.core(), minimal=True)
+    small = fib_program(300)
+    recs, _ = execute_for_proving(small, shard_size=1 << 10)
+    pk = machine.setup(small, device=device)
+    proofs = machine.prove(pk, recs, device=device)
+    sums = [o.global_sum for p in proofs for n, o in zip(p.chip_names, p.opened) if n == "Global"]
+    if len(proofs) < 2 or len(sums) != len(proofs) or any(g is None for g in sums):
+        raise AssertionError("mips: the small fib did not give two shards with global sums")
+    return codec.encode_core_proof(proofs)
 
 
 def keccak_phase(args, dev, card: str) -> dict:
@@ -614,13 +725,13 @@ def keccak_phase(args, dev, card: str) -> dict:
 
     from zkmips_tpu_torch.executor import execute_for_proving, guests
     from zkmips_tpu_torch.machine.machine import mips_machine
-    from zkmips_tpu_torch.ops import poseidon2 as p2, poseidon2_cuda
+    from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.stark.machine import StarkConfig
     from zkmips_tpu_torch.utils import logger
 
     # the deferred-shard split threshold (the reference's SPLIT_THRESHOLD knob,
     # 2^15 rows by default) raised so that the KeccakSponge events stay one
-    # deferred shard: 65,520 rows, padded to 2^16
+    # deferred shard up to 5,461 iterations (2^17 rows)
     os.environ["SPLIT_THRESHOLD"] = str(KECCAK_SPLIT_THRESHOLD)
     program = guests.keccak_chain_program(args.keccak_iters)
     t0 = time.perf_counter()
@@ -665,8 +776,8 @@ def keccak_phase(args, dev, card: str) -> dict:
         raise AssertionError(f"KeccakSponge is in {len(at)} shards, not one")
     kproof = proofs[at[0]]
     keccak = kproof.chip_names.index("KeccakSponge")
-    if kproof.opened[keccak].log_degree < 16:
-        raise AssertionError("KeccakSponge is below 2^16 padded rows")
+    if kproof.opened[keccak].log_degree < 15:
+        raise AssertionError("KeccakSponge is below 2^15 padded rows")
 
     t0 = time.perf_counter()
     assert machine.verify(pk.vk, proofs, program)
@@ -678,13 +789,20 @@ def keccak_phase(args, dev, card: str) -> dict:
     expect_rejected(machine, pk.vk, bad, program, "flipped word of KeccakSponge's opened values", "keccak")
     del proofs, bad, kproof, pk, records
     del os.environ["SPLIT_THRESHOLD"]
+    widest_leaf_check("the keccak prove's", shapes, args.seed + 5, dev, card)
+    return launches
 
-    # K1 at the widest leaf shape of this prove, against its plain version
+
+def widest_leaf_check(what: str, shapes, seed: int, dev, card: str):
+    """K1 at the widest leaf shape (rows, width) of a prove, against its
+    plain version, and timed beside its bound."""
+    from zkmips_tpu_torch.ops import poseidon2 as p2, poseidon2_cuda
+
     rows, width = max(shapes, key=lambda s: (s[1], s[0]))
-    m = rand_field(np.random.default_rng(args.seed + 5), (rows, width), dev)
+    m = rand_field(np.random.default_rng(seed), (rows, width), dev)
     got, want = poseidon2_cuda.hash_rows(m), p2.hash_matrix_rows_plain(m)
     err = max_err(got, want)
-    print(f"kernel poseidon2_hash_rows ({rows}, {width}), the keccak prove's widest leaf: "
+    print(f"kernel poseidon2_hash_rows ({rows}, {width}), {what} widest leaf: "
           f"max_abs_err {err} [{card}]", flush=True)
     if err != 0 or got.shape != want.shape:
         raise AssertionError("poseidon2_hash_rows disagrees with its plain version at the widest leaf")
@@ -693,8 +811,6 @@ def keccak_phase(args, dev, card: str) -> dict:
     bound_ms, bound_by, _ = poseidon2_bound(perms, m.numel() * 4 + rows * 32)
     print(f"time poseidon2_hash_rows at ({rows}, {width}): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}) [{card}]", flush=True)
-    del m, got, want
-    return launches
 
 
 def elf_phase(dev, card: str):
@@ -727,46 +843,47 @@ def elf_phase(dev, card: str):
               f"{time.perf_counter() - t0:.3f} s in all [{card}]", flush=True)
 
 
-def every_chip_phase(dev, card: str):
+def every_chip_phase(dev, card: str, cpu: CpuSide):
     """A guest that gives all 49 chips rows, proved at the test config on the
     card and on the CPU: the proofs must be equal field by field."""
-    from zkmips_tpu_torch import convert
+    on_card, names = every_chip_bytes(dev, card)
+    if on_card != cpu.get("every_chip"):
+        raise AssertionError("the card's proof of the every-chip guest differs from the CPU's")
+    print(f"every-chip guest: card and CPU proofs equal, {len(names)} chips", flush=True)
+
+
+def every_chip_bytes(device, card):
+    """The every-chip guest proved on ``device`` at the test config: (its
+    bytes, the chips it filled).  On the card its stages are printed and
+    the proof verified."""
     from zkmips_tpu_torch.executor import execute_for_proving, guests
     from zkmips_tpu_torch.machine.machine import mips_machine
     from zkmips_tpu_torch.stark.machine import StarkConfig
     from zkmips_tpu_torch.utils import logger
+    from zkmips_tpu_torch.verifier import stark_codec as codec
 
     program = guests.every_chip_program()
     machine = mips_machine(StarkConfig.test())
-
-    def prove_on(device):
-        t0 = time.perf_counter()
-        records, _ = execute_for_proving(program)
-        pk = machine.setup(program, device=device)
-        on_card = device != "cpu"
-        logger.configure(enabled=on_card, sync=True, echo=False)
-        logger.spans_reset()
-        proofs = machine.prove(pk, records, device=device)
-        if on_card:
-            torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t0
-        logger.configure(enabled=False)
-        verified = ""
-        if on_card:  # the stages of a shard of 49 small chips; the CPU's proofs must equal these
-            print_shards("every-chip", proofs, card)
-            t1 = time.perf_counter()
-            assert machine.verify(pk.vk, proofs, program)
-            verified = f", verified in {time.perf_counter() - t1:.3f} s"
-        print(f"every-chip guest on {device}: proved in {prove_s:.3f} s{verified} [{card}]", flush=True)
-        return [convert.shard_proof_to_numpy(p) for p in proofs]
-
-    on_card, on_cpu = prove_on(dev), prove_on("cpu")
-    names = {n for p in on_card for n in p["chip_names"]}
+    t0 = time.perf_counter()
+    records, _ = execute_for_proving(program)
+    pk = machine.setup(program, device=device)
+    on_card = device != "cpu"
+    logger.configure(enabled=on_card, sync=True, echo=False)
+    logger.spans_reset()
+    proofs = machine.prove(pk, records, device=device)
+    names = {n for p in proofs for n in p.chip_names}
     if names != {a.name for a in machine.airs} or len(names) != 49:
         raise AssertionError(f"the every-chip guest left chips empty: {sorted({a.name for a in machine.airs} - names)}")
-    if not _same(on_card, on_cpu):
-        raise AssertionError("the card's proof of the every-chip guest differs from the CPU's")
-    print(f"every-chip guest: card and CPU proofs equal, {len(names)} chips", flush=True)
+    if on_card:  # the stages of a shard of 49 small chips; the CPU's proofs must equal these
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        logger.configure(enabled=False)
+        print_shards("every-chip", proofs, card)
+        t1 = time.perf_counter()
+        assert machine.verify(pk.vk, proofs, program)
+        print(f"every-chip guest on {device}: proved in {prove_s:.3f} s, verified in "
+              f"{time.perf_counter() - t1:.3f} s [{card}]", flush=True)
+    return codec.encode_core_proof(proofs, config="test"), names
 
 
 def stream_phase(args, dev, card: str) -> dict:
@@ -870,7 +987,7 @@ def stream_keccak_phase(dev, card: str):
               f"byte, {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
 
 
-def recursion_configs_phase(args, dev, card: str):
+def recursion_configs_phase(args, dev, card: str, cpu: CpuSide):
     """The synthetic shard at the KoalaBear recursion configs (log blowup 2
     and 3): proved on the card and verified at 2^16 rows, a tampered proof
     rejected; at 2^13 rows the card's proof must equal the CPU's."""
@@ -905,18 +1022,252 @@ def recursion_configs_phase(args, dev, card: str):
         t0 = time.perf_counter()
         on_card = small_proof(machine, small, small_pv, dev)
         card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        on_cpu = small_proof(machine, small, small_pv, "cpu")
-        if not _same(on_card, on_cpu):
+        if on_card != cpu.get(f"config_{name}"):
             raise AssertionError(f"{name}: the card's proof differs from the CPU's")
         print(f"config {name}: card and CPU proofs at 2^{RECURSION_CPU_LOG_ROWS} rows equal "
-              f"(card {card_s:.1f} s, CPU {time.perf_counter() - t0:.1f} s)", flush=True)
+              f"(card {card_s:.1f} s)", flush=True)
 
 
-def full_phase(args, dev, card: str) -> dict:
+# --- the recursion ladder -------------------------------------------------------
+
+LADDER_STAGES = ("lift", "compress", "shrink", "wrap")
+SMALL_LADDER_ITERS = 25  # the card = CPU ladder guest: 160 cycles, two shards of up to 128
+SMALL_LADDER_SHARD = 128
+DEFERRED_AIRS = ("CpuAir", "AddSubAir", "BitwiseAir", "LtAir", "ShiftLeftAir", "ShiftRightAir",
+                 "BranchAir", "JumpAir", "MemoryInstrAir", "SyscallInstrAir", "MemoryLocalAir",
+                 "MemoryGlobalInitAir", "MemoryGlobalFinalizeAir", "GlobalAir", "ProgramAir",
+                 "ByteAir")  # the sixteen chips of the deferred chain's guests
+
+
+def ladder_stage(name: str, fn, card: str):
+    """Run one stage of the ladder with fenced spans, fresh launch counts and
+    a fresh peak-memory mark; print its parts.  Returns (output, record)."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.utils import logger
+
+    logger.configure(enabled=True, sync=True, echo=False)
+    logger.spans_reset()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    shapes = sorted(poseidon2_cuda.HASH_SHAPES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    spans = logger.spans_report()
+    logger.configure(enabled=False)
+    parts = {part: round(spans.get(f"{name}.{part}", (0.0, 0))[0], 4)
+             for part in ("circuit", "setup", "execute", "prove")}
+    parts["fills"] = round(spans.get(f"{name}.prove/prove.trace_gen", (0.0, 0))[0], 4)
+    rec = {"wall_s": round(wall, 4), "parts_s": parts, "peak_gib": round(peak_gb, 3),
+           "launches": launches, "leaf_shapes": shapes}
+    print(f"ladder {name}: " + json.dumps({"card": card, "wall_seconds": rec["wall_s"],
+                                             "seconds": parts, "execute": "C runtime",
+                                             "peak_device_gib": rec["peak_gib"],
+                                             "launches": launches}), flush=True)
+    return out, rec
+
+
+def print_recursion_shape(name: str, proof, card: str):
+    """A recursion proof's chips: padded log-heights."""
+    heights = {n: o.log_degree for n, o in zip(proof.chip_names, proof.opened)}
+    print(f"ladder {name} chips [padded log-height]: " + json.dumps(heights) + f" [{card}]", flush=True)
+
+
+def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
+    """The recursion ladder at full width: the fib guest in 2^20-cycle shards
+    proved by the 49-chip machine at the core config, then lift, compress,
+    shrink and wrap on the card; each stage checked with
+    ``verify_compressed`` and through its bytes.  Returns the launch counts
+    per stage."""
+    import copy
+
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.recursion.compress import RecursionProver
+    from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
+    from zkmips_tpu_torch.stark.pcs import FriConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    program = fib_program(args.ladder_fib_iters)
+    t0 = time.perf_counter()
+    records, info = execute_for_proving(program, shard_size=FULL_SHARD_CYCLES)
+    if len(records) < 2:
+        raise AssertionError("ladder: the guest does not fill two shards")
+    machine = mips_machine(StarkConfig.core())
+    pk = machine.setup(program)
+    proofs = machine.prove(pk, records)
+    torch.cuda.synchronize()
+    print(f"ladder core: {info['global_clk']} cycles ({info['executor']} executor), {len(proofs)} shards "
+          f"of up to {FULL_SHARD_CYCLES} cycles, executed and proved at the core config by the "
+          f"{len(machine.airs)}-chip machine in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    del records
+    rp = RecursionProver(machine)
+    if rp.shrink_machine.machine.config.fri != FriConfig.compressed() or \
+            rp.wrap_machine.machine.config.fri != FriConfig.outer():
+        raise AssertionError("ladder: shrink/wrap are not at the compressed / outer configs")
+    stages, done = {}, {}
+
+    def check(stage: str, cp):
+        t0 = time.perf_counter()
+        assert rp.verify_compressed(pk.vk, program, cp)
+        b = codec.encode_compressed_proof(cp)
+        back, _cfg = codec.decode_compressed_proof(b)
+        if codec.encode_compressed_proof(back) != b:
+            raise AssertionError(f"ladder {stage}: the bytes do not round-trip")
+        assert rp.verify_compressed(pk.vk, program, back)
+        stages[stage]["proof_bytes"] = len(b)
+        print(f"ladder {stage}: verify_compressed accepted the proof and its {len(b)} bytes decoded "
+              f"in {time.perf_counter() - t0:.3f} s", flush=True)
+        return b
+
+    layer, stages["lift"] = ladder_stage("lift", lambda: [rp.lift(pk.vk, p) for p in proofs], card)
+    stages["lift"]["proof_bytes"] = [len(codec.encode_core_proof([p])) for p, _vk in layer]
+    for i, (p, _vk) in enumerate(layer):
+        print_recursion_shape(f"lift {i + 1}", p, card)
+    done["compress"], stages["compress"] = ladder_stage(
+        "compress", lambda: rp.join(layer, len(proofs)), card)
+    print_recursion_shape("compress", done["compress"].proof, card)
+    check("compress", done["compress"])
+    del layer, proofs
+    done["shrink"], stages["shrink"] = ladder_stage("shrink", lambda: rp.shrink(done["compress"]), card)
+    print_recursion_shape("shrink", done["shrink"].proof, card)
+    check("shrink", done["shrink"])
+    done["wrap"], stages["wrap"] = ladder_stage("wrap", lambda: rp.wrap(done["shrink"]), card)
+    print_recursion_shape("wrap", done["wrap"].proof, card)
+    wrap_bytes = check("wrap", done["wrap"])
+    if done["wrap"].proof.main_root.dtype != object:
+        raise AssertionError("ladder wrap: the digests are not BN254 scalars")
+
+    bad = bytearray(wrap_bytes)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rp.verify_compressed(pk.vk, program, codec.decode_compressed_proof(bytes(bad))[0])
+    except (VerificationError, codec.CodecError) as e:
+        print(f"ladder wrap: a flipped byte rejected: {e}", flush=True)
+    else:
+        raise AssertionError("ladder wrap: a flipped byte was accepted")
+    tampered = copy.deepcopy(done["wrap"])
+    tampered.proof.public_values[0] += 1
+    try:
+        rp.verify_compressed(pk.vk, program, tampered)
+    except VerificationError as e:
+        print(f"ladder wrap: a tampered public value of the final record rejected: {e}", flush=True)
+    else:
+        raise AssertionError("ladder wrap: a tampered public value was accepted")
+    widest_leaf_check("the ladder's", stages["lift"]["leaf_shapes"] + stages["compress"]["leaf_shapes"]
+                      + stages["shrink"]["leaf_shapes"], args.seed + 9, dev, card)
+    print("ladder stages: " + json.dumps({"card": card, "stages": {
+        k: {kk: vv for kk, vv in v.items() if kk != "leaf_shapes"} for k, v in stages.items()}}), flush=True)
+    del done, pk
+    ladder_card_equals_cpu(dev, card, cpu)
+    deferred_chain(card)
+    return {k: v["launches"] for k, v in stages.items()}
+
+
+def ladder_card_equals_cpu(dev, card: str, cpu: CpuSide):
+    """At the test config, one lift and one compress pair (a two-shard guest
+    on the minimal machine) proved on the card and on the CPU: the
+    compressed proofs' bytes must be equal."""
+    t0 = time.perf_counter()
+    on_card = small_ladder_bytes(dev)
+    if on_card != cpu.get("ladder_small"):
+        raise AssertionError("ladder small: the card's compressed proof differs from the CPU's")
+    print(f"ladder small: two lifts and a compress pair at the test config, card and CPU bytes equal "
+          f"({len(on_card)} bytes; card {time.perf_counter() - t0:.3f} s) [{card}]", flush=True)
+
+
+def small_ladder_bytes(device) -> bytes:
+    """A two-shard guest proved, lifted and compressed on ``device`` at the
+    test config (minimal machine): the compressed proof's bytes."""
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.recursion.compress import RecursionProver
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    program = fib_program(SMALL_LADDER_ITERS)
+    records, _ = execute_for_proving(program, shard_size=SMALL_LADDER_SHARD)
+    if len(records) != 2:
+        raise AssertionError(f"ladder small: {len(records)} shards, not two")
+    machine = mips_machine(StarkConfig.test(), minimal=True)
+    pk = machine.setup(program, device=device)
+    rp = RecursionProver(machine)
+    cp = rp.compress(pk.vk, machine.prove(pk, records, device=device), device=device)
+    assert rp.verify_compressed(pk.vk, program, cp)
+    return codec.encode_compressed_proof(cp, config="test")
+
+
+def deferred_chain(card: str):
+    """The deferred chain of the aggregation test on the card, at the test
+    config: guest A compressed; guest B verifies A's proof in the VM and
+    commits the chain; ``prove_deferred`` -> ``verify_deferred`` against
+    guest B's compressed proof; a link with a changed digest rejected."""
+    import copy
+
+    from zkmips_tpu_torch.executor import Executor, Register as R, asm, execute_for_proving
+    from zkmips_tpu_torch.machine.machine import MipsMachine, core_chip_airs
+    from zkmips_tpu_torch.recursion.compress import RecursionProver
+    from zkmips_tpu_torch.recursion.rec_pv import canonical_digest
+    from zkmips_tpu_torch.recursion.verifier import record_digest, rolling_deferred_digest
+    from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
+
+    airs = {type(a).__name__: type(a) for a in core_chip_airs()}
+
+    def machine():
+        return MipsMachine(StarkConfig.test(), chip_airs=[airs[n]() for n in DEFERRED_AIRS])
+
+    def sys_(code, a0=0, a1=0):
+        return [*asm.li(R.V0, int(code)), *asm.li(R.A0, a0), *asm.li(R.A1, a1), asm.syscall()]
+
+    def store(addr, words):
+        return [x for i, w in enumerate(words)
+                for x in (*asm.li(R.T0, int(w)), *asm.li(R.T1, addr + 4 * i), asm.sw(R.T0, R.T1))]
+
+    t0 = time.perf_counter()
+    m_a = machine()
+    prog_a = asm.prog([*asm.li(R.T0, 5)] + asm.halt_sequence())
+    pk_a = m_a.setup(prog_a)
+    rp = RecursionProver(m_a)
+    cp_a = rp.compress(pk_a.vk, m_a.prove(pk_a, execute_for_proving(prog_a)[0]))
+    assert rp.verify_compressed(pk_a.vk, prog_a, cp_a)
+    child_vk = rp._find_final_vk(cp_a)
+    vk_root = canonical_digest(child_vk.prep_root)
+    child_pv = cp_a.proof.public_values.tolist()
+    chain = rolling_deferred_digest([0] * 8, vk_root, child_pv)
+    body = store(0x2000, vk_root) + store(0x2100, record_digest(child_pv)) + sys_(0x1B, 0x2000, 0x2100)
+    for i, w in enumerate(chain):
+        body += sys_(0x1A, i, w)  # COMMIT_DEFERRED_PROOFS
+    prog_b = asm.prog(body + asm.halt_sequence())
+    ex = Executor(prog_b)
+    ex.subproof_verifier = lambda proof, proof_vk, _vkey, _pvd: rp.rec.verify(proof_vk, proof)
+    ex.proof_stream.append((cp_a.proof, child_vk))
+    records_b = ex.run()
+    m_b = machine()
+    pk_b = m_b.setup(prog_b)
+    cp_b = RecursionProver(m_b).compress(pk_b.vk, m_b.prove(pk_b, records_b))
+    dp, new_digest = rp.prove_deferred(cp_a, [0] * 8)
+    if new_digest != chain:
+        raise AssertionError("deferred: the chain link is not the guest's committed digest")
+    assert rp.verify_deferred([dp], cp_b)
+    bad = copy.deepcopy(dp)
+    bad.new_digest[0] = (bad.new_digest[0] + 1) % P
+    try:
+        rp.verify_deferred([bad], cp_b)
+    except VerificationError as e:
+        print(f"deferred: a link with a changed digest rejected: {e}", flush=True)
+    else:
+        raise AssertionError("deferred: a changed chain link was accepted")
+    print(f"deferred: guest A compressed, guest B verified it in the VM, prove_deferred -> "
+          f"verify_deferred accepted the chain in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+
+
+def full_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     launches = keccak_phase(args, dev, card)
     elf_phase(dev, card)
-    every_chip_phase(dev, card)
+    every_chip_phase(dev, card, cpu)
     return launches
 
 
@@ -929,21 +1280,27 @@ def main() -> int:
                     help="iterations of the fib phase's guest (6 cycles each)")
     ap.add_argument("--stream-fib-iters", type=int, default=400_000,
                     help="iterations of the streaming phase's fib guest (6 cycles each)")
-    ap.add_argument("--keccak-iters", type=int, default=2730,
+    ap.add_argument("--keccak-iters", type=int, default=1365,
                     help="iterations of the full-machine phase's keccak-chain guest (24 KeccakSponge rows each)")
+    ap.add_argument("--ladder-fib-iters", type=int, default=180_000,
+                    help="iterations of the recursion ladder's fib guest (two 2^20-cycle shards at the default)")
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--only-kernels", action="store_true",
                       help="stop after the kernel phase and its kernels line (exit code 0, no last line)")
     only.add_argument("--only-full", action="store_true",
                       help="run the full-machine phase alone (exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-recursion", action="store_true",
+                      help="run the recursion phase alone (exit code 0, no kernels line, no last line)")
+    only.add_argument("--cpu-side", metavar="DIR", help=argparse.SUPPRESS)  # the second process
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from zkmips_tpu_torch.ops import poseidon2_cuda
-    from zkmips_tpu_torch.stark.machine import VerificationError
-    from zkmips_tpu_torch.utils import logger
+    if args.cpu_side:
+        cpu_side(args.cpu_side, args.seed)
+        return 0
+    import zkmips_tpu_torch  # noqa: F401  (fails here, before any phase, without the package)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -952,6 +1309,26 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    cpu = None if args.only_kernels else CpuSide(args)
+    finished = False
+    try:
+        finished = run_phases(args, dev, rng, card, cpu)
+    finally:
+        if cpu is not None:
+            cpu.close(finished)
+    if finished:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+    return 0
+
+
+def run_phases(args, dev, rng, card: str, cpu) -> bool:
+    """Every phase of the run; True when the whole script ran (the kernels
+    line printed), False after an ``--only-*`` part."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.stark.machine import VerificationError
+    from zkmips_tpu_torch.utils import logger
 
     t0 = time.perf_counter()
     lib = poseidon2_cuda.build()
@@ -965,8 +1342,11 @@ def main() -> int:
     print("sass: " + (json.dumps(sass) if sass else "cuobjdump not found, instructions not counted"), flush=True)
 
     if args.only_full:
-        full_phase(args, dev, card)
-        return 0
+        full_phase(args, dev, card, cpu)
+        return False
+    if args.only_recursion:
+        recursion_phase(args, dev, card, cpu)
+        return False
 
     machine = build_machine()
     for c in machine.chips:
@@ -976,7 +1356,7 @@ def main() -> int:
     records = kernel_phase(dev, rng, cpu_w + add_w, card)
     if args.only_kernels:
         print_kernels(records)
-        return 0
+        return False
 
     # main path
     t0 = time.perf_counter()
@@ -1024,29 +1404,31 @@ def main() -> int:
     # a small shard on the card and on the CPU must give the same proof
     small, small_pv = build_record(8, args.seed + 1)
     t0 = time.perf_counter()
-    if not _same(small_proof(machine, small, small_pv, dev), small_proof(machine, small, small_pv, "cpu")):
+    if small_proof(machine, small, small_pv, dev) != cpu.get("small_shard"):
         raise AssertionError("the card's proof of the small shard differs from the CPU's")
     print(f"small shard: card and CPU proofs equal ({time.perf_counter() - t0:.1f} s)", flush=True)
     del small, machine
 
-    for name, n in mips_phase(args, dev, card).items():
+    for name, n in mips_phase(args, dev, card, cpu).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the fib path")
     for name, n in stream_phase(args, dev, card).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the streaming path")
     stream_keccak_phase(dev, card)
-    recursion_configs_phase(args, dev, card)
-    for name, n in full_phase(args, dev, card).items():
+    recursion_configs_phase(args, dev, card, cpu)
+    for name, n in full_phase(args, dev, card, cpu).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the keccak path")
         records[name]["launches"] = n
-
+    ladder = recursion_phase(args, dev, card, cpu)
+    for name in records:
+        records[name]["ladder_launches"] = {stage: ladder[stage][name] for stage in LADDER_STAGES}
+        if sum(records[name]["ladder_launches"].values()) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the recursion ladder")
+    cpu.close(True)
     print_kernels(records)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    return True
 
 
 if __name__ == "__main__":

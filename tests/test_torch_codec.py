@@ -139,6 +139,9 @@ def test_truncated_bytes_raise(proven, cut):
 
 
 def test_header_and_bn254_arrays_are_refused(proven):
+    """Bad headers are refused.  BN254 (fr256) arrays are read since the
+    outer config was ported: a KoalaBear array retagged as fr256 no longer
+    parses as the proof it was."""
     b = proven["bytes"]
     with pytest.raises(codec.CodecError, match="header"):
         codec.decode_core_proof(b"ZKSX" + b[4:])
@@ -146,7 +149,7 @@ def test_header_and_bn254_arrays_are_refused(proven):
         codec.decode_vk(b"ZKVX" + proven["vk"][4:])
     # the first array (the main root) tagged as a BN254 (fr256) array
     fr = b[:20] + (0xFFFF_FFFF).to_bytes(4, "little") + b[20:]
-    with pytest.raises(codec.CodecError, match="BN254"):
+    with pytest.raises(codec.CodecError):
         codec.decode_core_proof(fr)
 
 

@@ -14,7 +14,7 @@ from zkmips_tpu_torch.stark.challenger import DuplexChallenger
 
 from test_torch_stark import PV, RECORD, _assert_same, _jax_machine, _port_machine, _to_reference_proof
 
-CONFIGS = ("core", "compressed", "ultra_compressed", "test")
+CONFIGS = ("core", "compressed", "ultra_compressed", "test", "outer", "outer_test")
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -26,8 +26,9 @@ def test_fri_config_values_equal_the_reference(name):
 
 
 def test_bn254_hash_family_is_refused():
-    with pytest.raises(NotImplementedError, match="7a"):
-        tpcs.FriConfig(2, 4, 4, hash_family="bn254")
+    """Only the two hash families construct: the BN254 outer config is
+    ported (``test_torch_outer_config.py``), an unknown family is refused."""
+    assert tpcs.FriConfig(2, 4, 4, hash_family="bn254") == tpcs.FriConfig.outer_test()
     with pytest.raises(ValueError):
         tpcs.FriConfig(hash_family="sha")
 

@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
-@pytest.mark.parametrize("sub", ["verifier", "guest"])
+@pytest.mark.parametrize("sub", ["verifier", "guest", "recursion"])
 def test_new_subpackages_are_covered(sub):
     files = [p for p in _port_files() if p.parent.name == sub]
     assert len(files) >= 2
@@ -100,6 +100,30 @@ def test_mips_entry_points_raise_without_gpu():
         machine.prove_streaming(None, iter(()))
     assert machine.setup(program, device="cpu").device == torch.device("cpu")
     assert machine.prove_streaming(None, iter(()), device="cpu") == []
+
+
+def test_recursion_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.recursion import Builder, RecursionMachine
+    from zkmips_tpu_torch.recursion.compress import RecursionProver
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+
+    b = Builder()
+    b.commit_public_values([b.felt(1)] * 8)
+    program = b.compile()
+    machine = RecursionMachine(StarkConfig.test())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.setup(program)
+    pk = machine.setup(program, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        machine.prove(pk, machine.execute(program))
+    rp = RecursionProver(mips_machine(StarkConfig.test(), minimal=True))
+    for call in (lambda: rp.join([(None, None), (None, None)], 2), lambda: rp.lift(None, None),
+                 lambda: rp.compress(None, [None]), lambda: rp.prove_deferred(None, [0] * 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -5,7 +5,11 @@ port as int32 tensors with the same bits.  These helpers take and return
 numpy arrays, so a test can hand the reference's traces, preprocessed
 tables, digests and ext values to the port and compare the two packages'
 proofs field by field.  The record, program and proof converters are
-duck-typed on attributes: nothing of the reference package is imported here.
+duck-typed on attributes, or take the reference's modules as arguments:
+nothing of the reference package is imported here.  Both ways: core and
+recursion shard proofs, verifying keys, the recursion ladder's programs,
+records, compressed and deferred proofs, and BN254 (outer config) digests,
+which both packages keep as numpy object arrays of Python ints.
 """
 
 from __future__ import annotations
@@ -29,16 +33,34 @@ def _opt(t):
     return None if t is None else to_numpy(t)
 
 
+def digest_to_numpy(d) -> np.ndarray:
+    """A digest or a stack of digests as the reference holds it: uint32 for
+    KoalaBear digests (int32 tensors), and a copy of the object array of
+    Python ints for BN254 digests (the outer config), which both packages
+    keep on the host."""
+    if isinstance(d, np.ndarray) and d.dtype == object:
+        return d.copy()
+    return to_numpy(d)
+
+
+def digest_to_port(d):
+    """The inverse of ``digest_to_numpy``: int32 tensor, or object array."""
+    a = np.asarray(d)
+    if a.dtype == object:
+        return a.copy()
+    return to_torch(a)
+
+
 def fri_proof_to_numpy(fp) -> dict:
     return {
-        "commit_roots": [to_numpy(r) for r in fp.commit_roots],
+        "commit_roots": [digest_to_numpy(r) for r in fp.commit_roots],
         "final_poly": to_numpy(fp.final_poly),
         "pow_witness": int(fp.pow_witness),
         "query_proofs": [
             {
-                "input_openings": [([to_numpy(r) for r in rows], to_numpy(sibs))
+                "input_openings": [([to_numpy(r) for r in rows], digest_to_numpy(sibs))
                                    for rows, sibs in qp.input_openings],
-                "commit_openings": [(to_numpy(co.sibling_value), to_numpy(co.siblings))
+                "commit_openings": [(to_numpy(co.sibling_value), digest_to_numpy(co.siblings))
                                     for co in qp.commit_openings],
             }
             for qp in fp.query_proofs
@@ -49,9 +71,9 @@ def fri_proof_to_numpy(fp) -> dict:
 def shard_proof_to_numpy(proof) -> dict:
     """The port's ShardProof as plain numpy fields, named as in the reference."""
     return {
-        "main_root": to_numpy(proof.main_root),
-        "perm_root": to_numpy(proof.perm_root),
-        "quotient_root": to_numpy(proof.quotient_root),
+        "main_root": digest_to_numpy(proof.main_root),
+        "perm_root": digest_to_numpy(proof.perm_root),
+        "quotient_root": digest_to_numpy(proof.quotient_root),
         "chip_names": list(proof.chip_names),
         "opened": [
             {
@@ -161,3 +183,167 @@ class _EventsOnly:
     def __init__(self, record):
         self._cpu_struct = getattr(record, "_cpu_struct", None)
         self.cpu_events = record.cpu_events
+
+
+# ---------------------------------------------------------------------------
+# Reference -> port proofs and keys
+# ---------------------------------------------------------------------------
+
+
+def _opt_port(a):
+    return None if a is None else to_torch(a)
+
+
+def shard_proof_to_port(proof):
+    """A reference-package ``ShardProof`` (or anything with its attributes)
+    as the port's, on the CPU; BN254 digests stay object arrays."""
+    from .stark import machine as tm, pcs as tpcs
+
+    fp = proof.fri_proof
+    fri = tpcs.FriProof(
+        [digest_to_port(r) for r in fp.commit_roots], to_torch(fp.final_poly), int(fp.pow_witness),
+        [tpcs.QueryProof(
+            [([to_torch(r) for r in rows], digest_to_port(sibs)) for rows, sibs in qp.input_openings],
+            [tpcs.CommitPhaseOpening(to_torch(co.sibling_value), digest_to_port(co.siblings))
+             for co in qp.commit_openings])
+         for qp in fp.query_proofs],
+    )
+    opened = [
+        tm.ChipOpenedValues(
+            _opt_port(ov.preprocessed_local), _opt_port(ov.preprocessed_next),
+            to_torch(ov.main_local), to_torch(ov.main_next),
+            to_torch(ov.perm_local), to_torch(ov.perm_next),
+            [to_torch(q) for q in ov.quotient], to_torch(ov.local_cumulative_sum),
+            _opt_port(ov.global_sum), int(ov.log_degree),
+        )
+        for ov in proof.opened
+    ]
+    return tm.ShardProof(
+        digest_to_port(proof.main_root), digest_to_port(proof.perm_root),
+        digest_to_port(proof.quotient_root), list(proof.chip_names), opened, fri,
+        to_torch(proof.public_values),
+    )
+
+
+def verifying_key_to_reference(vk, ref_machine):
+    """The port's ``VerifyingKey`` (a recursion program's, or any) as the
+    reference's ``stark.machine.VerifyingKey``."""
+    root = None if vk.prep_root is None else digest_to_numpy(vk.prep_root)
+    return ref_machine.VerifyingKey(root, list(vk.prep_heights))
+
+
+def verifying_key_to_port(vk):
+    from .stark.machine import VerifyingKey
+
+    root = None if vk.prep_root is None else digest_to_port(vk.prep_root)
+    return VerifyingKey(root, [(n, int(h)) for n, h in vk.prep_heights])
+
+
+# ---------------------------------------------------------------------------
+# The recursion ladder
+# ---------------------------------------------------------------------------
+
+
+def compressed_proof_to_reference(cp, ref_compress, ref_machine, ref_pcs):
+    """The port's ``CompressedProof`` as the reference's
+    (``recursion.compress`` handed in as ``ref_compress``)."""
+    return ref_compress.CompressedProof(
+        shard_proof_to_reference(cp.proof, ref_machine, ref_pcs), tuple(cp.final_vk_root),
+        int(cp.num_shards), cp.stage,
+    )
+
+
+def compressed_proof_to_port(cp):
+    from .recursion.compress import CompressedProof
+
+    return CompressedProof(shard_proof_to_port(cp.proof), tuple(cp.final_vk_root),
+                           int(cp.num_shards), cp.stage)
+
+
+def deferred_proof_to_reference(dp, ref_compress, ref_machine, ref_pcs):
+    return ref_compress.DeferredProof(
+        shard_proof_to_reference(dp.proof, ref_machine, ref_pcs), tuple(dp.final_vk_root),
+        tuple(dp.child_vk_root), list(dp.prev_digest), list(dp.new_digest),
+    )
+
+
+def deferred_proof_to_port(dp):
+    from .recursion.compress import DeferredProof
+
+    return DeferredProof(shard_proof_to_port(dp.proof), tuple(dp.final_vk_root),
+                         tuple(dp.child_vk_root), list(dp.prev_digest), list(dp.new_digest))
+
+
+def _instruction_as(ins, module):
+    """A recursion instruction as ``module``'s class of the same name, field
+    for field (the op of an ALU instruction as ``module.BaseOp``)."""
+    import dataclasses
+
+    cls = getattr(module, type(ins).__name__)
+    vals = {f.name: getattr(ins, f.name) for f in dataclasses.fields(ins)}
+    if "op" in vals:
+        vals["op"] = module.BaseOp(int(vals["op"]))
+    return cls(**vals)
+
+
+def recursion_program_to_port(program):
+    """A reference ``RecursionProgram`` as the port's."""
+    from .recursion import program as pr
+
+    return pr.RecursionProgram([_instruction_as(i, pr) for i in program.instructions],
+                               program.memory_size, program.num_public_values)
+
+
+def recursion_program_to_reference(program, ref_program):
+    """The port's ``RecursionProgram`` as the reference's
+    (``recursion.program`` handed in as ``ref_program``)."""
+    return ref_program.RecursionProgram([_instruction_as(i, ref_program) for i in program.instructions],
+                                        program.memory_size, program.num_public_values)
+
+
+_EVENT_LISTS = ("mem_const_events", "base_alu_events", "ext_alu_events", "poseidon2_events",
+                "select_events", "exp_bits_events", "fri_fold_events", "batch_fri_events",
+                "hint_events")
+
+
+def _convert_record(record, program, new_record, module):
+    """Copy a recursion record's events, its instruction objects replaced by
+    ``program``'s (matched by position) and ALU ops by ``module.BaseOp``."""
+    import enum
+
+    same = {id(a): b for a, b in zip(record.program.instructions, program.instructions)}
+
+    def conv(v):
+        if id(v) in same:
+            return same[id(v)]
+        if isinstance(v, enum.IntEnum):
+            return module.BaseOp(int(v))
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return v
+
+    for name in _EVENT_LISTS:
+        setattr(new_record, name, [conv(ev) for ev in getattr(record, name)])
+    new_record.public_values = [int(x) for x in record.public_values]
+    return new_record
+
+
+def recursion_record_to_port(record, program=None):
+    """A reference ``RecursionRecord`` as the port's; ``program`` is the
+    port's program for it (converted from the record's when not given)."""
+    from .recursion import program as pr
+    from .recursion.runtime import RecursionRecord
+
+    if program is None:
+        program = recursion_program_to_port(record.program)
+    return _convert_record(record, program, RecursionRecord(program=program), pr)
+
+
+def recursion_record_to_reference(record, ref_program, ref_runtime, program=None):
+    """The port's ``RecursionRecord`` as the reference's (its
+    ``recursion.program`` and ``recursion.runtime`` handed in)."""
+    if program is None:
+        program = recursion_program_to_reference(record.program, ref_program)
+    return _convert_record(record, program, ref_runtime.RecursionRecord(program=program), ref_program)

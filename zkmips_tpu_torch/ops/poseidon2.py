@@ -213,3 +213,20 @@ def compress_layer(layer: torch.Tensor) -> torch.Tensor:
 def hash_flat(values: torch.Tensor) -> torch.Tensor:
     """Sponge digest of a flat vector -> (8,)."""
     return hash_matrix_rows(values.reshape(1, -1))[0]
+
+
+# ---------------------------------------------------------------------------
+# Host helpers on canonical ints (the recursion ladder's digests)
+# ---------------------------------------------------------------------------
+
+
+def hash_canonical(values) -> list:
+    """``hash_flat`` of canonical felts, on the host: canonical digest (8 ints)."""
+    m = torch.tensor([f.to_monty_int(int(v) % _p) for v in values], dtype=torch.int32)
+    return [f.from_monty_int(x) for x in hash_flat(m).tolist()]
+
+
+def compress_canonical(left, right) -> list:
+    """``compress`` of two canonical 8-felt digests, on the host."""
+    state = [f.to_monty_int(int(v) % _p) for v in list(left) + list(right)]
+    return [f.from_monty_int(x) for x in permute_ints(state)[:OUT]]

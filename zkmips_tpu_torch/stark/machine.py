@@ -40,23 +40,36 @@ class StarkConfig:
         return StarkConfig(FriConfig.core())
 
     @staticmethod
+    def outer() -> "StarkConfig":
+        """The BN254 outer config of the wrap stage."""
+        return StarkConfig(FriConfig.outer())
+
+    @staticmethod
     def test() -> "StarkConfig":
         return StarkConfig(FriConfig.test())
 
-    def challenger(self) -> DuplexChallenger:
-        """A fresh transcript for the config's hash family (KoalaBear: a
-        ``FriConfig`` of another family does not construct)."""
+    def challenger(self):
+        """A fresh transcript for the config's hash family."""
+        if self.fri.hash_family == "bn254":
+            from .challenger_bn254 import MultiField32Challenger
+
+            return MultiField32Challenger()
         return DuplexChallenger()
 
-    def zero_digest(self) -> torch.Tensor:
+    def zero_digest(self):
         """The digest of an empty commitment (the perm root of a shard
-        without lookups)."""
+        without lookups): eight zero felts, or one zero BN254 scalar (a (1,)
+        object array) at the outer config."""
+        if self.fri.hash_family == "bn254":
+            z = np.empty(1, dtype=object)
+            z[0] = 0
+            return z
         return torch.zeros(8, dtype=torch.int32)
 
 
 @dataclass
 class VerifyingKey:
-    prep_root: torch.Tensor | None
+    prep_root: torch.Tensor | np.ndarray | None  # (8,) int32, or (1,) object at the outer config
     prep_heights: list  # [(name, log_h)] in committed order
 
     def observe_into(self, ch: DuplexChallenger):

@@ -17,12 +17,18 @@ Heavy work runs on the committed matrices' device.  The transcript stays on
 the host: each fold layer's root is read back before its beta is sampled
 (the reference instead runs the sponge inside its fused fold kernel; the
 values are the same).  The verifier runs on the CPU.
+
+At the outer config (``hash_family="bn254"``) the LDEs, the reduction and
+the fold still run on the device; the Merkle trees are hashed on the host
+from those LDEs (``ops/merkle_bn254``), and the transcript is the BN254
+``MultiField32Challenger``, whose grind runs on the host.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops import bits, ext4, field as f, merkle, ntt
@@ -35,8 +41,9 @@ class FriConfig:
     """FRI parameters, the reference's values (kb31_poseidon2.rs:54-63,203-240).
 
     ``hash_family`` names the Merkle and transcript hash: ``"kb"``
-    (Poseidon2 over KoalaBear) is the one the port has; ``"bn254"`` (the
-    wrap stage's outer config) is not ported and raises."""
+    (Poseidon2 over KoalaBear) or ``"bn254"`` (the wrap stage's outer
+    config: Poseidon2-BN254 digests and a multi-field transcript, on the
+    host)."""
 
     log_blowup: int = 1
     num_queries: int = 84
@@ -44,12 +51,7 @@ class FriConfig:
     hash_family: str = "kb"
 
     def __post_init__(self):
-        if self.hash_family == "bn254":
-            raise NotImplementedError(
-                "hash family 'bn254': the BN254 outer config is not ported "
-                "(ROADMAP queue 1 item 7a)"
-            )
-        if self.hash_family != "kb":
+        if self.hash_family not in ("kb", "bn254"):
             raise ValueError(f"unknown hash family {self.hash_family!r}")
 
     @staticmethod
@@ -67,9 +69,36 @@ class FriConfig:
         return FriConfig(3, 28, 16)
 
     @staticmethod
+    def outer() -> "FriConfig":
+        """The wrap stage's BN254 outer config: blowup 16, 21 queries."""
+        return FriConfig(4, 21, 16, hash_family="bn254")
+
+    @staticmethod
+    def outer_test() -> "FriConfig":
+        """Small outer config for unit tests (NOT sound)."""
+        return FriConfig(2, 4, 4, hash_family="bn254")
+
+    @staticmethod
     def test() -> "FriConfig":
         """Small config for fast unit tests (NOT sound)."""
         return FriConfig(1, 8, 4)
+
+
+def _mk(config: FriConfig):
+    """The Merkle module of the config's hash family: the BN254 trees are
+    built on the host from the device's LDEs (``ops/merkle_bn254``)."""
+    if config.hash_family == "bn254":
+        from ..ops import merkle_bn254
+
+        return merkle_bn254
+    return merkle
+
+
+def _stack_sibs(mk, sibs: list):
+    """Stack per-query Merkle paths: int32 tensors, or BN254 object arrays."""
+    if mk is merkle:
+        return torch.stack([torch.as_tensor(s, dtype=torch.int32) for s in sibs])
+    return np.stack([np.asarray(s) for s in sibs])
 
 
 @dataclass
@@ -79,12 +108,12 @@ class ProverData:
     domains: list
     coeffs: list | None  # per matrix (n, w) coefficients wrt its own domain
     ldes: list  # per matrix (n << log_blowup, w) bit-reversed LDE on the shift-g coset
-    tree: merkle.MerkleTree
+    tree: object  # merkle.MerkleTree, or merkle_bn254.MerkleTree at the outer config
     log_blowup: int = 1
     persistent: bool = False  # program-lifetime data: open_batches keeps its coeffs
 
     @property
-    def root(self) -> torch.Tensor:
+    def root(self):
         return self.tree.root
 
 
@@ -98,7 +127,7 @@ def commit(config: FriConfig, domains_and_matrices) -> ProverData:
         ldes.append(bits.bitrev_rows(ntt.extend_coeffs(c, rel_shift, config.log_blowup)))
         coeffs.append(c)
     domains = [d for d, _ in domains_and_matrices]
-    return ProverData(domains, coeffs, ldes, merkle.MerkleTree(ldes), config.log_blowup)
+    return ProverData(domains, coeffs, ldes, _mk(config).MerkleTree(ldes), config.log_blowup)
 
 
 def eval_at_ext_point(coeffs: torch.Tensor, dom: Domain, z: torch.Tensor) -> torch.Tensor:
@@ -166,10 +195,10 @@ def _reduce_height(parts, log_h: int) -> torch.Tensor:
     return f.narrow(acc % f.P)
 
 
-def _fold_commit(cur: torch.Tensor):
+def _fold_commit(cur: torch.Tensor, mk):
     """FRI layer matrix (n/2, 8) = [even ext | odd ext] rows, and its tree layers."""
     layer_mat = torch.cat([cur[0::2], cur[1::2]], dim=1)
-    return layer_mat, merkle.build_layers([layer_mat])
+    return layer_mat, mk.build_layers([layer_mat])
 
 
 def _fold_step(cur, beta, nxt, log_h: int) -> torch.Tensor:
@@ -225,12 +254,13 @@ def open_batches(config: FriConfig, rounds: list, challenger: DuplexChallenger):
     log_max = max(reduced)
     assert min(reduced) > config.log_blowup, "matrices at the minimum height are unsupported"
 
+    mk = _mk(config)
     with span("open.fold"):
         cur = reduced[log_max]
         commit_roots, layer_trees = [], []
-        layer_mat, layers = _fold_commit(cur)
+        layer_mat, layers = _fold_commit(cur, mk)
         for log_h in range(log_max, config.log_blowup, -1):
-            tree = merkle.MerkleTree([layer_mat], layers=layers)
+            tree = mk.MerkleTree([layer_mat], layers=layers)
             layer_trees.append(tree)
             root = tree.root
             commit_roots.append(root)
@@ -240,7 +270,7 @@ def open_batches(config: FriConfig, rounds: list, challenger: DuplexChallenger):
             use_next = nxt is not None and log_h - 1 > config.log_blowup
             cur = _fold_step(cur, beta, nxt if use_next else None, log_h)
             if log_h - 1 > config.log_blowup:
-                layer_mat, layers = _fold_commit(cur)
+                layer_mat, layers = _fold_commit(cur, mk)
         final_poly = cur[0].cpu()
 
     challenger.observe_slice(ext4.to_canonical(final_poly))
@@ -303,6 +333,7 @@ def verify_batches(config: FriConfig, rounds_info: list, proof: FriProof,
                    challenger: DuplexChallenger):
     """rounds_info: [(root, [(Domain, [(z, ys (w, 4)), ...]) per matrix])].
     Raises PcsError on failure."""
+    mk = _mk(config)
     alpha = challenger.sample_ext()
     betas = []
     for root in proof.commit_roots:
@@ -333,11 +364,11 @@ def verify_batches(config: FriConfig, rounds_info: list, proof: FriProof,
             torch.stack([torch.as_tensor(qp.input_openings[ri][0][m], dtype=torch.int32) for qp in qps])
             for m in range(len(mats))
         ]
-        sibs = torch.stack([torch.as_tensor(qp.input_openings[ri][1], dtype=torch.int32) for qp in qps])
+        sibs = _stack_sibs(mk, [qp.input_openings[ri][1] for qp in qps])
         dims = [(dom.size << config.log_blowup, r.shape[1]) for (dom, _pts), r in zip(mats, rows_per_mat)]
         batch_log_max = max(d.log_n for d, _ in mats) + config.log_blowup
-        if not merkle.verify_openings(root, idx >> (log_max - batch_log_max), dims,
-                                      rows_per_mat, sibs).all():
+        if not mk.verify_openings(root, idx >> (log_max - batch_log_max), dims,
+                                  rows_per_mat, sibs).all():
             raise PcsError("merkle verification failed for input batch")
         for (dom, pts), rows in zip(mats, rows_per_mat):
             log_h = dom.log_n + config.log_blowup
@@ -367,12 +398,11 @@ def verify_batches(config: FriConfig, rounds_info: list, proof: FriProof,
         bit = (layer_idx & 1).bool()
         sib_vals = torch.stack([torch.as_tensor(qp.commit_openings[k].sibling_value, dtype=torch.int32)
                                 for qp in qps])
-        layer_sibs = torch.stack([torch.as_tensor(qp.commit_openings[k].siblings, dtype=torch.int32)
-                                  for qp in qps])
+        layer_sibs = _stack_sibs(mk, [qp.commit_openings[k].siblings for qp in qps])
         row = torch.where(bit[:, None], torch.cat([sib_vals, folded], dim=1),
                           torch.cat([folded, sib_vals], dim=1))
-        if not merkle.verify_openings(proof.commit_roots[k], layer_idx >> 1,
-                                      [(1 << log_folded, 8)], [row], layer_sibs).all():
+        if not mk.verify_openings(proof.commit_roots[k], layer_idx >> 1,
+                                  [(1 << log_folded, 8)], [row], layer_sibs).all():
             raise PcsError(f"merkle verification failed at fold layer {k}")
         e0, e1 = row[:, 0:4], row[:, 4:8]
         x_even = torch.where(bit, (f.P - x) % f.P, x)

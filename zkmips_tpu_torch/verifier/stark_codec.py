@@ -15,14 +15,17 @@ Wire format (all integers little-endian u32 unless noted):
              [prep_root u32[dlen]] | n_heights | (name, log_h) ...
     strings: len | utf8 bytes zero-padded to a u32 boundary
     arrays:  ndim | shape... | data (uint32)
+    fr256:   0xFFFFFFFF | ndim | shape... | 32-byte LE ints (BN254 digests)
     ext points (4,) and digests (8,) are plain arrays
 
 The port's proofs hold int32 tensors with the bits of the reference's uint32
 arrays (Montgomery or canonical, field by field), so the bytes are the
 reference's for the same proof.  ``decode_*`` rebuilds the port's dataclasses
-with int32 tensors on the CPU.  The encoding is deterministic:
-encode(decode(b)) == b.  The recursion ladder's compressed and deferred
-proofs (BN254 digests included) are not ported.
+with int32 tensors on the CPU, and BN254 digests (the outer config) as
+numpy object arrays of Python ints.  The encoding is deterministic:
+encode(decode(b)) == b.  The recursion ladder's proofs have their own
+kinds: ``encode_compressed_proof`` (a ``CompressedProof`` of any stage:
+compress, shrink or the BN254 wrap) and ``encode_deferred_proof``.
 """
 
 from __future__ import annotations
@@ -65,7 +68,15 @@ class _W:
         pad = -len(b) % 4
         self.raw(b + b"\x00" * pad)
 
-    def arr(self, t: torch.Tensor):
+    def arr(self, t):
+        if isinstance(t, np.ndarray) and t.dtype == object:
+            self.u32(_FR256)
+            self.u32(t.ndim)
+            for d in t.shape:
+                self.u32(d)
+            for v in t.reshape(-1):
+                self.raw(int(v).to_bytes(32, "little"))
+            return
         a = np.ascontiguousarray(t.detach().cpu().to(torch.int32).numpy()).view(np.uint32)
         self.u32(a.ndim)
         for d in a.shape:
@@ -109,16 +120,22 @@ class _R:
         except UnicodeDecodeError as e:
             raise CodecError(f"invalid utf-8 string: {e}") from e
 
-    def arr(self) -> torch.Tensor:
+    def arr(self):
         ndim = self.u32()
-        if ndim == _FR256:
-            raise CodecError("BN254 digests (the outer config) are not supported")
+        is_fr = ndim == _FR256
+        if is_fr:
+            ndim = self.u32()
         if ndim > 4:
             raise CodecError("bad array rank")
         shape = tuple(self.u32() for _ in range(ndim))
         count = int(np.prod(shape)) if shape else 1
         if count > (1 << 28):
             raise CodecError("array too large")
+        if is_fr:
+            out = np.empty(count, dtype=object)
+            for i in range(count):
+                out[i] = int.from_bytes(self.raw(32), "little")
+            return out.reshape(shape)
         data = np.frombuffer(self.raw(4 * count), dtype=np.int32).reshape(shape)
         return torch.from_numpy(data.copy())
 
@@ -339,3 +356,102 @@ def verify_core(proof_bytes: bytes, vk_bytes: bytes,
         if got != words:
             raise VerificationError("committed digest does not match public values")
     return True
+
+
+# ---------------------------------------------------------------------------
+# recursion-ladder proofs (compressed / deferred); the reference bincodes
+# these (crates/stark/src/types.rs:37-129), the same stable-bytes goal here
+# ---------------------------------------------------------------------------
+
+KIND_COMPRESSED = 2
+KIND_DEFERRED = 3
+
+_STAGE_IDS = {"compress": 1, "shrink": 2, "wrap": 3}
+
+
+def _enc_root_tuple(w: _W, root: tuple):
+    w.u32(len(root))
+    for v in root:
+        w.raw(int(v).to_bytes(32, "little"))
+
+
+def _dec_root_tuple(r: _R) -> tuple:
+    n = r.u32()
+    if n > 8:
+        raise CodecError("bad vk root length")
+    return tuple(int.from_bytes(r.raw(32), "little") for _ in range(n))
+
+
+def _dec_header(r: _R, kind: int, what: str) -> str:
+    if r.raw(4) != MAGIC_PROOF or r.u32() != VERSION:
+        raise CodecError("bad proof header")
+    if r.u32() != kind:
+        raise CodecError(f"not a {what} proof")
+    names = {v: k for k, v in CONFIG_IDS.items()}
+    cfg_id = r.u32()
+    if cfg_id not in names:
+        raise CodecError("unknown config id")
+    return names[cfg_id]
+
+
+def encode_compressed_proof(cp, config: str = "core") -> bytes:
+    """Serialize a CompressedProof (any stage: compress, shrink or wrap)."""
+    w = _W()
+    w.raw(MAGIC_PROOF)
+    w.u32(VERSION)
+    w.u32(KIND_COMPRESSED)
+    w.u32(CONFIG_IDS[config])
+    w.u32(_STAGE_IDS[cp.stage])
+    w.u32(cp.num_shards)
+    _enc_root_tuple(w, cp.final_vk_root)
+    _enc_shard(w, cp.proof)
+    return w.bytes_()
+
+
+def decode_compressed_proof(b: bytes):
+    """-> (CompressedProof, config_name)."""
+    from ..recursion.compress import CompressedProof
+
+    r = _R(b)
+    config = _dec_header(r, KIND_COMPRESSED, "compressed")
+    stages = {v: k for k, v in _STAGE_IDS.items()}
+    stage_id = r.u32()
+    if stage_id not in stages:
+        raise CodecError("unknown stage id")
+    num_shards = r.u32()
+    root = _dec_root_tuple(r)
+    proof = _dec_shard(r)
+    if r.off != len(b):
+        raise CodecError("trailing bytes")
+    return CompressedProof(proof, root, num_shards, stages[stage_id]), config
+
+
+def encode_deferred_proof(dp, config: str = "core") -> bytes:
+    """Serialize a DeferredProof chain link."""
+    w = _W()
+    w.raw(MAGIC_PROOF)
+    w.u32(VERSION)
+    w.u32(KIND_DEFERRED)
+    w.u32(CONFIG_IDS[config])
+    _enc_root_tuple(w, dp.final_vk_root)
+    _enc_root_tuple(w, dp.child_vk_root)
+    w.arr(torch.tensor(dp.prev_digest, dtype=torch.int32))
+    w.arr(torch.tensor(dp.new_digest, dtype=torch.int32))
+    _enc_shard(w, dp.proof)
+    return w.bytes_()
+
+
+def decode_deferred_proof(b: bytes):
+    """-> (DeferredProof, config_name)."""
+    from ..recursion.compress import DeferredProof
+
+    r = _R(b)
+    config = _dec_header(r, KIND_DEFERRED, "deferred")
+    final_root = _dec_root_tuple(r)
+    child_root = _dec_root_tuple(r)
+    prev = [int(x) for x in r.arr().tolist()]
+    new = [int(x) for x in r.arr().tolist()]
+    proof = _dec_shard(r)
+    if r.off != len(b):
+        raise CodecError("trailing bytes")
+    return DeferredProof(proof, final_root, child_root, prev, new), config
