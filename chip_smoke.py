@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--stream-fib-iters N]
                           [--keccak-iters N] [--ladder-fib-iters N]
-                          [--only-kernels | --only-full | --only-recursion]
+                          [--only-kernels | --only-full | --only-recursion | --only-snark [--plonk-full]
+                           | --only-sdk {groth16,plonk}]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -81,9 +82,36 @@
    (guest A compressed, guest B verifying it in the VM,
    ``prove_deferred`` -> ``verify_deferred``) runs on the card.
    ``--only-recursion`` runs the card line, the build and this phase alone
-   (exit code 0, no ``kernels`` line and no last line);
-10. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
-   with the ladder's launches per stage) and, last,
+   (exit code 0, no ``kernels`` line and no last line).  ``--only-snark``
+   runs the ladder (without the CPU process, the small ladder and the
+   deferred chain) and then the SNARK link over the ladder's own
+   full-width wrap proof: ``wrap_groth16`` (what
+   ``ProverClient.prove(mode="groth16")`` calls after the wrap: the outer
+   verifier circuit built as an R1CS on the host, Groth16 setup and prove
+   with ``csrc/bn254.c``'s MSMs and FFTs) and ``verify_groth16``, then
+   every byte API (``check_groth16_bytes``), printing ``snark groth16
+   (full width):`` with the constraint and variable counts, the
+   ``snark.*`` spans' seconds (circuit, setup, prove, verify), the bytes,
+   the host's resident memory and the kernels' launches (zero: host code).
+   It takes about 23 minutes, so it is not part of the whole run.  With
+   ``--plonk-full`` it proves PLONK over that wrap proof instead, and stops
+   before setup when the packed prover would not fit the host's memory;
+   each stage's seconds are printed on stderr as it ends;
+10. the SDK phase: ``ProverClient(config=StarkConfig.test())`` proves the
+   e2e fib guest (two shards of 128 cycles) with ``mode="groth16"`` on the
+   card (core, lift, compress, shrink, wrap on the card; Groth16 over the
+   outer circuit on the host), verifies it and its container bytes, and
+   puts the proof through every byte API: ``Groth16Verifier`` on the proof
+   and vk bytes, the wrapped container, ``ProverClient.verify`` on the
+   ``ProofWithPublicValues`` bytes, the vk and proof in gnark's wire format
+   through ``verify_gnark_groth16_algebraic``, ``verify_gnark_groth16``
+   and the Solidity verifier on a circuit of gnark's two public inputs
+   (constants checked); a wrong public input, a flipped proof byte, a
+   flipped gnark flag bit and a tampered wrap public value must be
+   rejected.  ``--only-sdk groth16|plonk`` runs this phase alone in either
+   mode;
+11. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
+   with the ladder's launches per stage and the SNARK's) and, last,
    ``{"ok": true, "device": {...}}``.
 
 The CPU halves of the card = CPU checks (the small shard, the small fib,
@@ -1031,6 +1059,8 @@ def recursion_configs_phase(args, dev, card: str, cpu: CpuSide):
 # --- the recursion ladder -------------------------------------------------------
 
 LADDER_STAGES = ("lift", "compress", "shrink", "wrap")
+SDK_FIB_ITERS = 25  # the SDK phase's guest: the e2e fib, two shards of up to 128 cycles
+SDK_SHARD = 128
 SMALL_LADDER_ITERS = 25  # the card = CPU ladder guest: 160 cycles, two shards of up to 128
 SMALL_LADDER_SHARD = 128
 DEFERRED_AIRS = ("CpuAir", "AddSubAir", "BitwiseAir", "LtAir", "ShiftLeftAir", "ShiftRightAir",
@@ -1161,10 +1191,16 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
                       + stages["shrink"]["leaf_shapes"], args.seed + 9, dev, card)
     print("ladder stages: " + json.dumps({"card": card, "stages": {
         k: {kk: vv for kk, vv in v.items() if kk != "leaf_shapes"} for k, v in stages.items()}}), flush=True)
-    del done, pk
-    ladder_card_equals_cpu(dev, card, cpu)
-    deferred_chain(card)
-    return {k: v["launches"] for k, v in stages.items()}
+    launches = {k: v["launches"] for k, v in stages.items()}
+    if args.plonk_full:
+        snark_plonk_full(rp, done["wrap"], pk.vk, program, card)
+    elif args.only_snark:
+        snark_groth16_full(rp, done["wrap"], pk.vk, program, info, card)
+    else:
+        del done, pk
+        ladder_card_equals_cpu(dev, card, cpu)
+        deferred_chain(card)
+    return launches
 
 
 def ladder_card_equals_cpu(dev, card: str, cpu: CpuSide):
@@ -1264,6 +1300,314 @@ def deferred_chain(card: str):
           f"verify_deferred accepted the chain in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
 
 
+def host_rss_gib() -> tuple[float, float]:
+    """(resident, peak resident) memory of this process, GiB."""
+    import resource
+
+    with open("/proc/self/status") as fh:
+        rss_kb = next(int(line.split()[1]) for line in fh if line.startswith("VmRSS:"))
+    return rss_kb / 2**20, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def snark_counts(run, echo: bool = True) -> tuple:
+    """Run ``run()`` with fresh spans, notes and launch counts (with
+    ``echo``, each span and count printed on stderr as it ends, so a cut run
+    shows how far it got); returns (output, {part: seconds}, notes, launches,
+    resident GiB before)."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.utils import logger
+
+    rss0, _ = host_rss_gib()
+    logger.configure(enabled=True, echo=echo)
+    logger.spans_reset()
+    poseidon2_cuda.reset_launches()
+    try:
+        out = run()
+        spans, notes = logger.spans_report(), logger.notes_report()
+    finally:
+        logger.configure(enabled=False, echo=False)
+    seconds = {k.removeprefix("snark."): round(v[0], 4) for k, v in spans.items() if k.startswith("snark.")}
+    notes = {k.removeprefix("snark."): v for k, v in notes.items() if k.startswith("snark.")}
+    return out, seconds, notes, dict(poseidon2_cuda.LAUNCHES), rss0
+
+
+def expect_not_accepted(what: str, fn, errors):
+    """``fn()`` must raise one of ``errors`` or return False."""
+    try:
+        accepted = fn()
+    except errors as e:
+        print(f"snark: {what} rejected: {type(e).__name__}: {e}", flush=True)
+        return
+    if accepted:
+        raise AssertionError(f"snark: {what} was accepted")
+    print(f"snark: {what} rejected: the pairing check failed", flush=True)
+
+
+def gnark_and_solidity_check(core_vk, program, pv_bytes: bytes):
+    """The gnark byte API with its own two public inputs (the vkey hash
+    without its top byte, sha256 of the public values): a Groth16 proof of a
+    circuit of that shape through ``verify_gnark_groth16``, and the Solidity
+    verifier rendered from its gnark vk with its constants checked."""
+    import hashlib
+    import re
+
+    from zkmips_tpu_torch.snark import groth16, r1cs
+    from zkmips_tpu_torch.verifier import gnark, solidity, stark_codec as codec
+
+    vkey_hash = hashlib.sha256(codec.encode_vk(core_vk, program.pc_start)).digest()
+    cs = r1cs.ConstraintSystem()
+    a = cs.public(int.from_bytes(vkey_hash[1:], "big"))
+    b = cs.public(gnark.hash_public_inputs(pv_bytes))
+    cs.assert_eq(cs.mul(a, b), cs.witness(cs.value(a) * cs.value(b)))
+    pk, vk = groth16.setup(cs)
+    vk_b = gnark.dump_groth16_vk(vk)
+    proof_b = gnark.dump_groth16_proof(groth16.prove(pk, cs), vk_b)
+    if not gnark.verify_gnark_groth16(proof_b, pv_bytes, vkey_hash.hex(), vk_b):
+        raise AssertionError("snark: verify_gnark_groth16 rejected a proof of the vkey-hash circuit")
+    expect_not_accepted("other public values under verify_gnark_groth16", lambda: gnark.verify_gnark_groth16(
+        proof_b, pv_bytes + b"\x01", vkey_hash.hex(), vk_b), gnark.GnarkDecodeError)
+    src = solidity.render_groth16_verifier(vk_b)
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(r"constant (\w+) = (\d+);", src)}
+    want = {"ALPHA_X": vk.alpha1[0], "ALPHA_Y": vk.alpha1[1]}
+    for name, pt in (("BETA", vk.beta2), ("GAMMA", vk.gamma2), ("DELTA", vk.delta2)):
+        (x0, x1), (y0, y1) = pt
+        want.update({f"{name}_X0": x0, f"{name}_X1": x1, f"{name}_Y0": y0, f"{name}_Y1": y1})
+    for i, (kx, ky) in enumerate(vk.ic):
+        want.update({f"K{i}_X": kx, f"K{i}_Y": ky})
+    if any(consts.get(n) != v for n, v in want.items()) or hashlib.sha256(vk_b).digest()[:4].hex() not in src:
+        raise AssertionError("snark: the Solidity verifier's constants are not the vk's")
+    return len(src)
+
+
+def check_groth16_bytes(wg, core_vk, program, pw, client) -> dict:
+    """A Groth16-wrapped proof through every byte API: the proof and vk
+    bytes under ``Groth16Verifier``, the wrapped container, the
+    ``ProofWithPublicValues`` container into ``ProverClient.verify``, the vk
+    and proof in gnark's wire format; a wrong public input, a flipped proof
+    byte, a flipped gnark flag bit and a tampered wrap public value
+    rejected.  Returns the byte sizes."""
+    import copy
+
+    from zkmips_tpu_torch import verifier as vf
+    from zkmips_tpu_torch.sdk import ProofWithPublicValues
+    from zkmips_tpu_torch.snark.outer_circuit import pack_public_values, verify_groth16
+    from zkmips_tpu_torch.stark.machine import VerificationError
+    from zkmips_tpu_torch.verifier import gnark
+
+    proof_b = vf.encode_groth16_proof(wg.proof)
+    vk_b = vf.encode_groth16_vk(wg.groth16_vk)
+    publics = pack_public_values(wg.wrap_public_values)
+    if not vf.Groth16Verifier.verify(proof_b, vk_b, vf.encode_public_inputs(publics)):
+        raise AssertionError("snark groth16: Groth16Verifier rejected the proof's bytes")
+    expect_not_accepted("a wrong public input", lambda: vf.Groth16Verifier.verify(
+        proof_b, vk_b, vf.encode_public_inputs([publics[0] + 1] + publics[1:])), vf.VerificationFailure)
+    bad = bytearray(proof_b)
+    bad[5] ^= 1
+    expect_not_accepted("a flipped proof byte", lambda: vf.Groth16Verifier.verify(
+        bytes(bad), vk_b, vf.encode_public_inputs(publics)), vf.VerificationFailure)
+    wrapped_b = vf.encode_groth16_wrapped(wg)
+    back = vf.decode_groth16_wrapped(wrapped_b)
+    if vf.encode_groth16_wrapped(back) != wrapped_b:
+        raise AssertionError("snark groth16: the wrapped proof's bytes do not round-trip")
+    assert verify_groth16(core_vk, program, back)
+
+    pw_b = pw.to_bytes()
+    if not client.verify(core_vk, ProofWithPublicValues.from_bytes(pw_b), program):
+        raise AssertionError("snark groth16: ProverClient.verify rejected the container's bytes")
+    tampered = copy.deepcopy(pw)
+    tampered.proofs[0].wrap_public_values[0] = (tampered.proofs[0].wrap_public_values[0] + 1) % P
+    expect_not_accepted("a tampered wrap public value", lambda: client.verify(core_vk, tampered, program),
+                        VerificationError)
+
+    gvk_b = gnark.dump_groth16_vk(wg.groth16_vk)
+    gproof_b = gnark.dump_groth16_proof(wg.proof, gvk_b)
+    gvk = gnark.load_groth16_vk(gvk_b)
+    gproof = gnark.load_groth16_proof(gproof_b[4:])
+    k = wg.groth16_vk
+    if (gvk.alpha, gvk.beta, gvk.gamma, gvk.delta, gvk.k) != (k.alpha1, k.beta2, k.gamma2, k.delta2, k.ic) \
+            or (gproof.ar, gproof.bs, gproof.krs) != (wg.proof.a, wg.proof.b, wg.proof.c):
+        raise AssertionError("snark groth16: the gnark bytes do not decode to the key and proof")
+    if not gnark.verify_gnark_groth16_algebraic(gvk, gproof, publics):
+        raise AssertionError("snark groth16: the gnark verifier rejected the proof")
+    flipped = bytearray(gvk_b)
+    flipped[0] ^= 0x40  # alpha's compression flag: the other y
+    expect_not_accepted("a flipped gnark flag bit", lambda: gnark.verify_gnark_groth16_algebraic(
+        gnark.load_groth16_vk(bytes(flipped)), gproof, publics), gnark.GnarkDecodeError)
+    solidity_chars = gnark_and_solidity_check(core_vk, program, bytes(pw.public_values) or b"\x00")
+    return {"proof_bytes": len(proof_b), "vk_bytes": len(vk_b), "public_inputs": len(publics),
+            "wrapped_bytes": len(wrapped_b), "container_bytes": len(pw_b), "gnark_vk_bytes": len(gvk_b),
+            "gnark_proof_bytes": len(gproof_b), "solidity_chars": solidity_chars}
+
+
+def snark_groth16_full(rp, wrapped, core_vk, program, info, card: str):
+    """``--only-snark``: Groth16 over the ladder's own full-width wrap proof
+    (``wrap_groth16``, what ``ProverClient.prove(mode="groth16")`` calls
+    after the wrap), ``verify_groth16`` and every byte API."""
+    from zkmips_tpu_torch.sdk import ProofWithPublicValues, ProverClient
+    from zkmips_tpu_torch.snark.outer_circuit import verify_groth16, wrap_groth16
+
+    def run():
+        wg = wrap_groth16(rp, wrapped)
+        assert verify_groth16(core_vk, program, wg)
+        return wg
+
+    wg, seconds, notes, launches, rss0 = snark_counts(run)
+    rss1, peak = host_rss_gib()
+    pw = ProofWithPublicValues([wg], info["public_values"], info["digest"], mode="groth16")
+    sizes = check_groth16_bytes(wg, core_vk, program, pw, ProverClient())
+    print("snark groth16 (full width): " + json.dumps({
+        "card": card, "constraints": notes.get("constraints"), "variables": notes.get("variables"),
+        "seconds": seconds, **sizes,
+        "host_rss_gib": {"before": round(rss0, 3), "after": round(rss1, 3), "peak": round(peak, 3)},
+        "launches": launches}), flush=True)
+
+
+# host bytes a PLONK setup and prove hold at their peak, per slot of the gate
+# domain: the packed prover keeps about 25 vectors on the 4n-point quotient
+# coset at 32 bytes an element (3,200 bytes a slot), beside the SRS, the
+# selector and permutation polynomials, the gate lists and the R1CS
+PLONK_HOST_BYTES_PER_SLOT = 5000
+
+
+def plonk_prove_bytes(n: int) -> int:
+    """Host bytes the packed PLONK setup and prove need for a domain of
+    ``n`` gates (``snark/plonk``)."""
+    return PLONK_HOST_BYTES_PER_SLOT * n
+
+
+def snark_plonk_full(rp, wrapped, core_vk, program, card: str):
+    """``--only-snark --plonk-full``: PLONK over the full-width wrap proof.
+    Each stage's seconds and counts are printed as it ends; before setup,
+    the prover's memory at this domain is held against the host's, and the
+    run stops there (exit code 0, a ``snark plonk (full width)`` line saying
+    so) when it would not fit."""
+    from zkmips_tpu_torch import verifier as vf
+    from zkmips_tpu_torch.snark import outer_circuit, plonk
+    from zkmips_tpu_torch.utils import logger
+
+    with open("/proc/meminfo") as fh:
+        host_bytes = next(int(line.split()[1]) for line in fh if line.startswith("MemTotal:")) * 1024
+    reached = {}
+
+    def run():
+        circ, _key = outer_circuit._outer_circuit(rp, wrapped)
+        reached["circuit_rss_gib"] = round(host_rss_gib()[0], 3)
+        with logger.span("snark.gates"):
+            gates = plonk.gates_from_r1cs(circ.cs)
+        logger.note("snark.gates", gates.num_gates)
+        reached["gates_rss_gib"] = round(host_rss_gib()[0], 3)
+        n = plonk._domain_size(gates)
+        reached["domain"] = n
+        reached["prove_bytes_needed"] = plonk_prove_bytes(n)
+        if plonk_prove_bytes(n) > 0.8 * host_bytes:
+            reached["stopped"] = (f"before setup: the packed prover needs about {plonk_prove_bytes(n) / 2**30:.0f}"
+                                  f" GiB at 2^{n.bit_length() - 1} gates, the host has {host_bytes / 2**30:.0f} GiB")
+            return None
+        del circ
+        with logger.span("snark.setup"):
+            pk, vk = plonk.setup(gates)
+        with logger.span("snark.prove"):
+            proof = plonk.prove(pk, gates)
+        return outer_circuit.PlonkWrappedProof(proof, vk, [int(x) for x in wrapped.proof.public_values.tolist()],
+                                               wrapped.num_shards)
+
+    wp, seconds, notes, launches, rss0 = snark_counts(run)
+    rec = {"card": card, "constraints": notes.get("constraints"), "gates": notes.get("gates"), **reached,
+           "seconds": seconds, "launches": launches}
+    if wp is not None:
+        assert outer_circuit.verify_plonk(core_vk, program, wp)
+        proof_b, vk_b = vf.encode_plonk_proof(wp.proof), vf.encode_plonk_vk(wp.plonk_vk)
+        pubs = vf.encode_public_inputs(outer_circuit.pack_public_values(wp.wrap_public_values))
+        if not vf.PlonkVerifier.verify(proof_b, vk_b, pubs):
+            raise AssertionError("snark plonk: PlonkVerifier rejected the proof's bytes")
+        rec.update({"proof_bytes": len(proof_b), "vk_bytes": len(vk_b)})
+    rec["host_rss_gib"] = {"before": round(rss0, 3), "peak": round(host_rss_gib()[1], 3)}
+    print("snark plonk (full width): " + json.dumps(rec), flush=True)
+
+
+def e2e_fib_program(n_iters: int):
+    """The fib guest of the reference's MIPS -> SNARK end-to-end test
+    (``tests/test_groth16_e2e.py``) at ``n_iters`` iterations."""
+    from zkmips_tpu_torch.executor import Opcode as O, Register as R, asm
+
+    body = [
+        asm.addi(R.A0, 0, n_iters), asm.addi(R.T0, 0, 0), asm.addi(R.T1, 0, 1),
+        asm.alu(O.ADD, R.T2, R.T0, R.T1),
+        asm.alu(O.ADD, R.T0, R.T1, R.ZERO),
+        asm.alu(O.ADD, R.T1, R.T2, R.ZERO),
+        asm.addi(R.A0, R.A0, -1),
+        asm.branch(O.BNE, R.A0, R.ZERO, -5 * 4),
+        asm.nop(),
+    ]
+    return asm.prog(body + asm.halt_sequence())
+
+
+def sdk_phase(mode: str, card: str) -> dict:
+    """``ProverClient(config=StarkConfig.test())`` on the card: the e2e fib
+    guest in two shards proved with ``mode`` ("groth16" or "plonk": core,
+    lift, compress, shrink and wrap on the card, the SNARK over the outer
+    circuit on the host), verified, through its container bytes, a tampered
+    wrap public value rejected; a Groth16 proof also through every byte API
+    (``check_groth16_bytes``).  Returns the kernels' launches during the
+    SNARK itself (host code: zero)."""
+    import copy
+
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.sdk import ProofWithPublicValues, ProverClient, ZKMStdin
+    from zkmips_tpu_torch.snark import outer_circuit
+    from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
+
+    program = e2e_fib_program(SDK_FIB_ITERS)
+    if len(execute_for_proving(program, shard_size=SDK_SHARD)[0]) != 2:
+        raise AssertionError("sdk: the guest does not give two shards")
+    client = ProverClient(config=StarkConfig.test())
+    wrap_name = "wrap_groth16" if mode == "groth16" else "wrap_plonk"
+    wrap_fn = getattr(outer_circuit, wrap_name)
+    snark_launches = {}
+
+    def counted(*a, **kw):  # the launches of the SNARK alone, beside the ladder's
+        before = dict(poseidon2_cuda.LAUNCHES)
+        out = wrap_fn(*a, **kw)
+        snark_launches.update({k: v - before.get(k, 0) for k, v in poseidon2_cuda.LAUNCHES.items()})
+        return out
+
+    def run():
+        pk, vk = client.setup(program)
+        setattr(outer_circuit, wrap_name, counted)
+        try:
+            proof = client.prove(pk, program, ZKMStdin(), shard_size=SDK_SHARD, mode=mode)
+        finally:
+            setattr(outer_circuit, wrap_name, wrap_fn)
+        return vk, proof
+
+    t0 = time.perf_counter()
+    (vk, proof), seconds, notes, launches, _rss0 = snark_counts(run, echo=False)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if proof.mode != mode or not client.verify(vk, proof, program):
+        raise AssertionError(f"sdk {mode}: the proof was not accepted")
+    seconds["verify"] = round(time.perf_counter() - t0, 4)
+    b = proof.to_bytes()
+    back = ProofWithPublicValues.from_bytes(b)
+    if back.to_bytes() != b or not client.verify(vk, back, program):
+        raise AssertionError(f"sdk {mode}: the container's bytes do not round-trip or verify")
+    if mode == "groth16":
+        sizes = check_groth16_bytes(proof.proofs[0], vk, program, proof, client)
+    else:
+        bad = copy.deepcopy(proof)
+        bad.proofs[0].wrap_public_values[0] = (bad.proofs[0].wrap_public_values[0] + 1) % P
+        expect_not_accepted("a tampered wrap public value", lambda: client.verify(vk, bad, program),
+                            VerificationError)
+        sizes = {"container_bytes": len(b)}
+    _rss, peak = host_rss_gib()
+    print(f"snark {mode} (test config): " + json.dumps({
+        "card": card, **notes, "wall_seconds": round(wall, 4), "seconds": seconds, **sizes,
+        "host_peak_rss_gib": round(peak, 3), "launches_whole_prove": launches,
+        "launches_snark": snark_launches}), flush=True)
+    return snark_launches
+
+
 def full_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     launches = keccak_phase(args, dev, card)
     elf_phase(dev, card)
@@ -1291,8 +1635,17 @@ def main() -> int:
                       help="run the full-machine phase alone (exit code 0, no kernels line, no last line)")
     only.add_argument("--only-recursion", action="store_true",
                       help="run the recursion phase alone (exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-snark", action="store_true",
+                      help="run the ladder and Groth16 over its full-width wrap proof alone "
+                           "(exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-sdk", choices=("groth16", "plonk"),
+                      help="run the SDK phase alone in this mode (exit code 0, no kernels line, no last line)")
     only.add_argument("--cpu-side", metavar="DIR", help=argparse.SUPPRESS)  # the second process
+    ap.add_argument("--plonk-full", action="store_true",
+                    help="with --only-snark: PLONK over the full-width wrap proof in place of Groth16")
     args = ap.parse_args()
+    if args.plonk_full and not args.only_snark:
+        ap.error("--plonk-full goes with --only-snark")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1309,7 +1662,7 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    cpu = None if args.only_kernels else CpuSide(args)
+    cpu = None if args.only_kernels or args.only_snark or args.only_sdk else CpuSide(args)
     finished = False
     try:
         finished = run_phases(args, dev, rng, card, cpu)
@@ -1323,6 +1676,18 @@ def main() -> int:
     return 0
 
 
+class PhaseClock:
+    """Prints each phase's wall and the script's so far."""
+
+    def __init__(self, t_start: float):
+        self.t_start = self.t_last = t_start
+
+    def done(self, phase: str):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - self.t_last:.1f} s (script {now - self.t_start:.1f} s)", flush=True)
+        self.t_last = now
+
+
 def run_phases(args, dev, rng, card: str, cpu) -> bool:
     """Every phase of the run; True when the whole script ran (the kernels
     line printed), False after an ``--only-*`` part."""
@@ -1330,7 +1695,7 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     from zkmips_tpu_torch.stark.machine import VerificationError
     from zkmips_tpu_torch.utils import logger
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     lib = poseidon2_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}", flush=True)
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1344,8 +1709,11 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     if args.only_full:
         full_phase(args, dev, card, cpu)
         return False
-    if args.only_recursion:
+    if args.only_recursion or args.only_snark:
         recursion_phase(args, dev, card, cpu)
+        return False
+    if args.only_sdk:
+        sdk_phase(args.only_sdk, card)
         return False
 
     machine = build_machine()
@@ -1409,23 +1777,32 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     print(f"small shard: card and CPU proofs equal ({time.perf_counter() - t0:.1f} s)", flush=True)
     del small, machine
 
+    clock = PhaseClock(t_script)
     for name, n in mips_phase(args, dev, card, cpu).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the fib path")
+    clock.done("kernels, synthetic shard and fib")
     for name, n in stream_phase(args, dev, card).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the streaming path")
     stream_keccak_phase(dev, card)
     recursion_configs_phase(args, dev, card, cpu)
+    clock.done("streaming")
     for name, n in full_phase(args, dev, card, cpu).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the keccak path")
         records[name]["launches"] = n
+    clock.done("full machine")
     ladder = recursion_phase(args, dev, card, cpu)
+    clock.done("recursion")
     for name in records:
         records[name]["ladder_launches"] = {stage: ladder[stage][name] for stage in LADDER_STAGES}
         if sum(records[name]["ladder_launches"].values()) == 0:
             raise AssertionError(f"kernel {name} was not launched on the recursion ladder")
+    snark = sdk_phase("groth16", card)
+    clock.done("sdk groth16")
+    for name in records:
+        records[name]["snark_launches"] = snark.get(name, 0)
     cpu.close(True)
     print_kernels(records)
     return True

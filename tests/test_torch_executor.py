@@ -232,3 +232,18 @@ def test_library_is_built_under_build_not_beside_the_source():
     assert cbuild.BUILD_DIR.parts[-2:] == ("build", "native")
     assert os.path.basename(os.path.dirname(native_trace._SRC)) == "csrc"
     assert native_trace.library() == lib and os.path.exists(lib)  # content-hashed: no rebuild
+
+
+def test_threads_that_build_one_library_together_all_get_it(monkeypatch, tmp_path):
+    """The first use of a native library may come from several threads at
+    once (the recursion prover lifts shards in a pool): every thread gets
+    the built library, and no temporary file is left behind."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = tmp_path / "tiny.c"
+    src.write_text("int zkm_tiny(int x) { return x + 1; }\n")
+    monkeypatch.setattr(cbuild, "BUILD_DIR", tmp_path / "native")
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(lambda _: cbuild.build(str(src)), range(8)))
+    assert len(set(paths)) == 1 and os.path.exists(paths[0])
+    assert os.listdir(tmp_path / "native") == [os.path.basename(paths[0])]

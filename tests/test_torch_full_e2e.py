@@ -9,22 +9,26 @@ bytes, and acceptance by the reference's own ``MipsMachine.verify``.  All at
 """
 
 import copy
+from pathlib import Path
 
 import pytest
 
 from zkmips_tpu.executor import Executor as JExecutor
+from zkmips_tpu.executor.program import Program as JProgram
 from zkmips_tpu.machine.machine import mips_machine as j_mips_machine
 from zkmips_tpu.stark import machine as jmachine
 from zkmips_tpu.stark import pcs as jpcs
 
 from zkmips_tpu_torch import convert
-from zkmips_tpu_torch.executor import execute_for_proving, guests
+from zkmips_tpu_torch.executor import Program as TProgram, execute_for_proving, guests
 from zkmips_tpu_torch.machine import machine as tmachine
 from zkmips_tpu_torch.machine.machine import mips_machine
 from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
 
 from test_torch_interpreter import ref_program
 from test_torch_stark import _assert_same
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures" / "guests"
 
 GUESTS = {
     # every opcode, and the sha and keccak precompiles: KeccakSponge (3475
@@ -136,10 +140,26 @@ def test_prove_program_defaults_to_the_full_machine(monkeypatch):
     seen = []
     monkeypatch.setattr(tmachine.MipsMachine, "setup", lambda self, program, device=None: seen.append(self))
     monkeypatch.setattr(tmachine.MipsMachine, "prove", lambda self, pk, records, device=None: [])
-    m, _pk, proofs, info = tmachine.prove_program(guests.program(guests.keccak_body()),
-                                                  config=StarkConfig.test(), device="cpu")
+    tp = guests.program(guests.keccak_body())
+    m, _pk, proofs, info = tmachine.prove_program(tp, config=StarkConfig.test(), device="cpu")
     assert seen == [m] and len(m.airs) == 49 and proofs == []
     assert info["executor"] == "interpreter"
+    # the fourth value reads as the reference's Executor, whichever executor ran
+    stdin = [(0x12345678).to_bytes(4, "little"), (0x0F0F0F0F).to_bytes(4, "little")]
+    elf = (FIXTURES / "io_hints_commit.elf").read_bytes()
+    for prog, ref, bufs, executor in ((tp, ref_program(tp), (), "interpreter"),
+                                      (TProgram.from_elf(elf), JProgram.from_elf(elf), stdin, "native")):
+        *_, info = tmachine.prove_program(prog, stdin=bufs, config=StarkConfig.test(), device="cpu")
+        ex = JExecutor(ref)
+        for buf in bufs:
+            ex.write_stdin(buf)
+        ex.run()
+        assert info["executor"] == executor
+        assert info.stdout == bytes(ex.stdout)
+        assert info.public_values_stream == bytes(ex.public_values_stream)
+        assert (info.exit_code, info.global_clk) == (ex.exit_code, ex.global_clk)
+        assert info.committed_value_digest == list(ex.committed_value_digest)
+    assert any(info.committed_value_digest)
 
 
 def test_full_machine_entry_points_need_a_device_or_the_cpu(monkeypatch):

@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
-@pytest.mark.parametrize("sub", ["verifier", "guest", "recursion"])
+@pytest.mark.parametrize("sub", ["verifier", "guest", "recursion", "snark", "sdk"])
 def test_new_subpackages_are_covered(sub):
     files = [p for p in _port_files() if p.parent.name == sub]
     assert len(files) >= 2
@@ -124,6 +125,53 @@ def test_recursion_entry_points_raise_without_gpu():
                  lambda: rp.compress(None, [None]), lambda: rp.prove_deferred(None, [0] * 8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_sdk_client_proves_on_the_card_unless_told(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    from zkmips_tpu_torch.executor import asm
+    from zkmips_tpu_torch.machine.machine import MipsMachine
+    from zkmips_tpu_torch.sdk import ProverClient
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+
+    program = asm.prog(asm.halt_sequence())
+    client = ProverClient(config=StarkConfig.test())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        client.setup(program)
+    for mode in ("core", "compressed", "groth16", "plonk"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            client.prove(None, program, mode=mode)
+    seen = []
+    monkeypatch.setattr(MipsMachine, "setup",
+                        lambda self, program, device=None: seen.append(device) or SimpleNamespace(vk=None))
+    ProverClient(config=StarkConfig.test(), device="cpu").setup(program)
+    assert seen == [torch.device("cpu")]
+
+
+def test_snark_native_raises_without_its_library(monkeypatch, tmp_path):
+    """A ``bn254.c`` that does not build raises at the first SNARK call:
+    there is no pure-Python fallback on the port's path."""
+    import subprocess as sp
+
+    from zkmips_tpu_torch.ops import bn254_native
+    from zkmips_tpu_torch.snark import groth16, native, r1cs
+
+    assert not hasattr(native, "available")
+    broken = tmp_path / "bn254.c"
+    broken.write_text("this is not C\n")
+    monkeypatch.setattr(bn254_native, "_LIB", None)
+    monkeypatch.setattr(bn254_native, "_SRC", str(broken))
+    monkeypatch.setattr("zkmips_tpu_torch.utils.cbuild.BUILD_DIR", tmp_path / "native")
+    cs = r1cs.ConstraintSystem()
+    cs.assert_eq(cs.mul(cs.public(3), cs.witness(5)), cs.witness(15))
+    with pytest.raises(sp.CalledProcessError):
+        groth16.setup(cs)
+    with pytest.raises(sp.CalledProcessError):
+        native.g1_msm([None], [1])
+    monkeypatch.setattr(bn254_native, "_SRC", str(tmp_path / "missing.c"))
+    with pytest.raises(OSError):
+        native.fr_vec_inv(native.pack_fr([1]))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -9,7 +9,9 @@ duck-typed on attributes, or take the reference's modules as arguments:
 nothing of the reference package is imported here.  Both ways: core and
 recursion shard proofs, verifying keys, the recursion ladder's programs,
 records, compressed and deferred proofs, and BN254 (outer config) digests,
-which both packages keep as numpy object arrays of Python ints.
+which both packages keep as numpy object arrays of Python ints.  The SNARK
+link's Groth16 and PLONK keys and proofs, wrapped proofs and
+``ProofWithPublicValues`` go through each package's own byte codec.
 """
 
 from __future__ import annotations
@@ -347,3 +349,48 @@ def recursion_record_to_reference(record, ref_program, ref_runtime, program=None
     if program is None:
         program = recursion_program_to_reference(record.program, ref_program)
     return _convert_record(record, program, ref_runtime.RecursionRecord(program=program), ref_program)
+
+
+# ---- the SNARK link: Groth16 and PLONK keys and proofs, proof containers ----
+
+_SNARK_CODECS = {
+    "groth16_vk": ("encode_groth16_vk", "decode_groth16_vk"),
+    "groth16_proof": ("encode_groth16_proof", "decode_groth16_proof"),
+    "groth16_wrapped": ("encode_groth16_wrapped", "decode_groth16_wrapped"),
+    "plonk_vk": ("encode_plonk_vk", "decode_plonk_vk"),
+    "plonk_proof": ("encode_plonk_proof", "decode_plonk_proof"),
+    "plonk_wrapped": ("encode_plonk_wrapped", "decode_plonk_wrapped"),
+}
+
+
+def snark_to_reference(kind: str, obj, ref_verifier):
+    """A Groth16 or PLONK verifying key, proof or wrapped proof of the port
+    (``kind`` a key of ``_SNARK_CODECS``) as the reference's object: written
+    by the port's byte codec, read by the reference's (``ref_verifier`` is
+    the reference's ``verifier`` package)."""
+    from . import verifier
+
+    enc, dec = _SNARK_CODECS[kind]
+    return getattr(ref_verifier, dec)(getattr(verifier, enc)(obj))
+
+
+def snark_to_port(kind: str, obj):
+    """The reference's Groth16 or PLONK object as the port's: the port's
+    codec writes the reference's dataclasses (same fields) and reads the
+    bytes back into its own."""
+    from . import verifier
+
+    enc, dec = _SNARK_CODECS[kind]
+    return getattr(verifier, dec)(getattr(verifier, enc)(obj))
+
+
+def proof_with_public_values_to_reference(pw, ref_sdk):
+    """The port's ``ProofWithPublicValues`` as the reference's, through the
+    container bytes (``ref_sdk`` is the reference's ``sdk`` package)."""
+    return ref_sdk.ProofWithPublicValues.from_bytes(pw.to_bytes())
+
+
+def proof_with_public_values_to_port(pw):
+    from .sdk import ProofWithPublicValues
+
+    return ProofWithPublicValues.from_bytes(pw.to_bytes())

@@ -428,10 +428,37 @@ def mips_machine(config: StarkConfig | None = None, minimal: bool = False) -> Mi
     return MipsMachine(config)
 
 
+class ExecutionInfo(dict):
+    """What ``execute_for_proving`` reports, readable both as its dict
+    (``info["executor"]``) and as the reference's ``Executor`` attributes that
+    a caller of ``prove_program`` reads after the run."""
+
+    @property
+    def stdout(self) -> bytes:
+        return self["stdout"]
+
+    @property
+    def public_values_stream(self) -> bytes:
+        return self["public_values"]
+
+    @property
+    def exit_code(self) -> int:
+        return self["exit_code"]
+
+    @property
+    def global_clk(self) -> int:
+        return self["global_clk"]
+
+    @property
+    def committed_value_digest(self) -> list:
+        return self["digest"]
+
+
 def prove_program(program, stdin=(), config: StarkConfig | None = None,
                   machine: MipsMachine | None = None, shard_size: int = 1 << 20, device=None):
     """Execute ``program`` and prove every shard with ``machine`` (the full
-    machine unless given): (machine, pk, proofs, info)."""
+    machine unless given): (machine, pk, proofs, info), where ``info`` is an
+    :class:`ExecutionInfo` in the place of the reference's ``Executor``."""
     from ..executor import execute_for_proving
 
     device = resolve_device(device)
@@ -439,7 +466,7 @@ def prove_program(program, stdin=(), config: StarkConfig | None = None,
     records, info = execute_for_proving(program, stdin_bufs=stdin, shard_size=shard_size)
     pk = m.setup(program, device=device)
     proofs = m.prove(pk, records, device=device)
-    return m, pk, proofs, info
+    return m, pk, proofs, ExecutionInfo(info)
 
 
 def verify_program(m: MipsMachine, vk, proofs, program) -> bool:

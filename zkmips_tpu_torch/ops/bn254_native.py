@@ -6,7 +6,8 @@ multi-field sponge over rows of canonical KoalaBear values
 (``zkm_bn254_compress_rows``).  Digests cross the boundary as (n, 4) uint64
 arrays: the canonical BN254 scalar, 64-bit limbs little-endian.  The C
 source is compiled with OpenMP where it lies into ``build/native/`` at first
-use; a failed build raises.
+use; a failed build or load raises.  ``lib()`` is the one loaded library,
+which ``snark/native`` binds for the MSMs and Fr FFTs of the SNARK link.
 """
 
 from __future__ import annotations
@@ -25,17 +26,19 @@ _SRC = os.path.join(str(REPO_ROOT), "csrc", "bn254.c")
 _U64 = ctypes.POINTER(ctypes.c_uint64)
 
 
-def _lib():
+def lib():
+    """The loaded ``bn254.c`` library (built at first use; raises if the
+    build or the load fails)."""
     global _LIB, _RC
     if _LIB is None:
         _RC = pack_fr([c for row in RC3 for c in row])
-        lib = ctypes.CDLL(build(_SRC, ("-fopenmp",)))
+        so = ctypes.CDLL(build(_SRC, ("-fopenmp",)))
         u32p = ctypes.POINTER(ctypes.c_uint32)
-        lib.zkm_bn254_hash_felts_rows.argtypes = [u32p, ctypes.c_int64, ctypes.c_int64, _U64, _U64]
-        lib.zkm_bn254_hash_felts_rows.restype = None
-        lib.zkm_bn254_compress_rows.argtypes = [_U64, _U64, ctypes.c_int64, _U64, _U64]
-        lib.zkm_bn254_compress_rows.restype = None
-        _LIB = lib
+        so.zkm_bn254_hash_felts_rows.argtypes = [u32p, ctypes.c_int64, ctypes.c_int64, _U64, _U64]
+        so.zkm_bn254_hash_felts_rows.restype = None
+        so.zkm_bn254_compress_rows.argtypes = [_U64, _U64, ctypes.c_int64, _U64, _U64]
+        so.zkm_bn254_compress_rows.restype = None
+        _LIB = so
     return _LIB
 
 
@@ -53,14 +56,14 @@ def unpack_fr(arr: np.ndarray) -> list[int]:
 
 def hash_felts_rows(rows: np.ndarray) -> np.ndarray:
     """(h, w) canonical uint32 rows -> (h, 4) packed digests."""
-    lib = _lib()
+    so = lib()
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     if rows.ndim != 2:
         raise ValueError(f"rows of shape {rows.shape}, not (h, w)")
     h, w = rows.shape
     out = np.empty((h, 4), dtype=np.uint64)
     if h:
-        lib.zkm_bn254_hash_felts_rows(
+        so.zkm_bn254_hash_felts_rows(
             rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
             ctypes.c_int64(h), ctypes.c_int64(w),
             _RC.ctypes.data_as(_U64), out.ctypes.data_as(_U64),
@@ -70,7 +73,7 @@ def hash_felts_rows(rows: np.ndarray) -> np.ndarray:
 
 def compress_rows(left: np.ndarray, right: np.ndarray) -> np.ndarray:
     """(n, 4) x 2 packed digests -> (n, 4): compress(left[i], right[i])."""
-    lib = _lib()
+    so = lib()
     left = np.ascontiguousarray(left, dtype=np.uint64)
     right = np.ascontiguousarray(right, dtype=np.uint64)
     if left.shape != right.shape or left.ndim != 2 or left.shape[1] != 4:
@@ -78,7 +81,7 @@ def compress_rows(left: np.ndarray, right: np.ndarray) -> np.ndarray:
     n = left.shape[0]
     out = np.empty((n, 4), dtype=np.uint64)
     if n:
-        lib.zkm_bn254_compress_rows(
+        so.zkm_bn254_compress_rows(
             left.ctypes.data_as(_U64), right.ctypes.data_as(_U64), ctypes.c_int64(n),
             _RC.ctypes.data_as(_U64), out.ctypes.data_as(_U64),
         )

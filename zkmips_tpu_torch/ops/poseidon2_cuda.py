@@ -40,6 +40,7 @@ LAUNCHES = {"poseidon2_hash_rows": 0, "poseidon2_compress": 0, "poseidon2_permut
 _COUNT_LOCK = threading.Lock()  # shards proved in several threads launch side by side
 
 _LIB = None
+_BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
 _CONSTANTS_ON: set = set()  # device indices whose constant memory is loaded
 
 
@@ -72,15 +73,18 @@ def build(source: Path | None = None) -> Path:
     lib = BUILD_DIR / f"libzkm_poseidon2-{tag}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    with _BUILD_LOCK:
+        if lib.exists():  # another thread built it while this one waited
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
     return lib
 
 

@@ -20,13 +20,17 @@ crates/recursion/circuit/src/machine/{core,compress}.rs).
 
 ``witness`` reads the proofs it is given (the port's ``ShardProof``, whose
 tensors may live on the card) once each into a host copy of canonical
-Python ints (``host_proof``); the hint extractors read that copy.
+Python ints (``host_proof``); the hint extractors read that copy.  The
+outer circuit (``snark/outer_circuit``) reads a wrap proof through the same
+copy, its BN254 digests kept as Python ints.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from types import SimpleNamespace
+
+import numpy as np
 
 from ..ops import field as ff, poseidon2 as p2
 from ..stark import air
@@ -39,7 +43,11 @@ RATE = 8
 
 
 def _canon(t) -> list:
-    """Montgomery int32 tensor -> nested lists of canonical ints."""
+    """Montgomery int32 tensor -> nested lists of canonical ints.  A BN254
+    digest array of the outer config (numpy, dtype object) holds Fr scalars,
+    not KoalaBear values: its Python ints are kept as they are."""
+    if isinstance(t, np.ndarray):
+        return t.tolist()
     return ff.from_monty(t.cpu()).tolist()
 
 

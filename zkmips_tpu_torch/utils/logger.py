@@ -108,6 +108,8 @@ def note(name: str, value: int):
         key = "/".join(_stack() + [name])
         with _LOCK:
             _notes()[key] = value
+        if _CFG["echo"]:
+            print(f"[note] {key}: {value}", file=sys.stderr, flush=True)
 
 
 def notes_report() -> dict:
