@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--stream-fib-iters N]
                           [--keccak-iters N] [--ladder-fib-iters N]
                           [--only-kernels | --only-full | --only-recursion | --only-snark [--plonk-full]
-                           | --only-sdk {groth16,plonk}]
+                           | --only-sdk {groth16,plonk} | --only-mesh | --only-network | --only-cli]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -97,6 +97,13 @@
    ``--plonk-full`` it proves PLONK over that wrap proof instead, and stops
    before setup when the packed prover would not fit the host's memory;
    each stage's seconds are printed on stderr as it ends;
+   Except under ``--only-snark``, the recursion phase also proves the
+   ladder's two core shards with ``MipsMachine.prove(devices=...)`` over
+   every visible card, at least two entries (``cuda:0`` twice on one card):
+   the bytes must equal the single-device proofs; with two cards or more
+   K1 is also launched on ``cuda:1`` from a thread whose current device is
+   0 and held against its plain version (on one card this is printed as
+   not exercised);
 10. the SDK phase: ``ProverClient(config=StarkConfig.test())`` proves the
    e2e fib guest (two shards of 128 cycles) with ``mode="groth16"`` on the
    card (core, lift, compress, shrink, wrap on the card; Groth16 over the
@@ -110,12 +117,48 @@
    flipped gnark flag bit and a tampered wrap public value must be
    rejected.  ``--only-sdk groth16|plonk`` runs this phase alone in either
    mode;
-11. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
-   with the ladder's launches per stage and the SNARK's) and, last,
-   ``{"ok": true, "device": {...}}``.
+11. the mesh phase, at full width: the fib guest (600,000 iterations:
+   four 2^20-cycle shards) run by the native executor, the
+   Cpu chip's traces at 2^20 rows with the Global chip's digests and each
+   shard's public values; ``parallel.kernels.make_multichip_step`` over a
+   4 x 2 ('shard', 'col') grid of the visible cards (``cuda:0`` eight times
+   on one card); every output must equal ``host_stage_reference`` on the
+   card, shard by shard, a replay whose Merkle trees are hashed by the
+   plain torch Poseidon2 (no kernel launched), so that K1 and K2 at the
+   step's own shapes are held against their plain versions;
+   ``septic_identity_host`` must accept the gathered
+   digests and reject a tampered word; K1 and K2 must be launched; each
+   part's seconds, peak memory and launches are printed.  At 64-cycle
+   shards, on the Branch and Cpu chips, the card's step must equal the CPU
+   process's.  ``--only-mesh`` runs it alone;
+12. the network phase: a ``ProverServer`` at the core config and one at the
+   test config on the card, in background threads, with
+   ``ZKM_NETWORK_KEY`` set; the client in a subprocess with
+   ``CUDA_VISIBLE_DEVICES=""`` (``--network-client``): ``/setup`` and
+   ``/prove_core`` of a fib (two 2^17-cycle shards) whose bytes must equal
+   the local proofs; at the test config ``/prove``, ``/verify``, then
+   ``/prove_core`` -> ``/compress`` -> ``/shrink`` -> ``/wrap``; a failing
+   job must raise on the client and an unsigned POST must get 403.
+   ``--only-network`` runs it alone;
+13. the CLI phase, beside the network phase: subprocesses of ``python3 -m
+   zkmips_tpu_torch.cli`` on a fixture ELF, all at once: ``execute``,
+   ``vkey`` and ``prove`` at the core config (the lines and the proof's
+   bytes checked against the client in this process), ``verify`` of that
+   client's proof and of it with one flipped byte (exit code 1), ``prove
+   --config test --mode compressed``, ``serve`` with ``prove --endpoint``,
+   and ``solidity-verifier`` on the SDK phase's gnark vk bytes (the source
+   must be the one rendered in this process).  ``--only-cli`` runs it alone with
+   ``warmup --quick`` beside it and a vk made of fixed curve points; the
+   warmup must fail on exactly the corpus's ``mixed30k`` guest and exit 1
+   (ROADMAP.md queue 3: that guest's DIVU is not one the DivRem chip
+   proves, in either package);
+14. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
+   with the ladder's launches per stage, the SNARK's, the placed prove's
+   and the mesh step's) and, last, ``{"ok": true, "device": {...}}``.
 
-The CPU halves of the card = CPU checks (the small shard, the small fib,
-the recursion configs, the every-chip guest, the small ladder) run in a
+The CPU halves of the card = CPU checks (the small mesh steps, the small
+shard, the small fib, the recursion configs, the every-chip guest, the
+small ladder) run in a
 second process of this script, started after the card line, while the
 card runs its phases; each phase waits for its CPU proof's bytes and
 compares them with the card's, and the process's times are printed before
@@ -129,6 +172,7 @@ when the package is missing, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -179,6 +223,7 @@ RECURSION_CONFIGS = ("compressed", "ultra_compressed")  # FriConfig log blowup 2
 RECURSION_LOG_ROWS = 16  # the synthetic shard proved at them on the card
 RECURSION_CPU_LOG_ROWS = 13  # the synthetic shard proved at them on card and CPU
 FIXTURES = "tests/fixtures/guests"  # the compiled guests, relative to this script
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # io_hints_commit reads two little-endian u32 words from stdin
 IO_HINTS_STDIN = [(0x12345678).to_bytes(4, "little"), (0x0F0F0F0F).to_bytes(4, "little")]
 CPU_LOOKUPS = 21  # the reference Cpu chip's lookup count: 12 extension permutation columns
@@ -552,6 +597,8 @@ def cpu_side(out: str, seed: int):
         os.replace(tmp, os.path.join(out, f"{name}.bin"))
         print(f"cpu side: {name} proved on the CPU in {time.perf_counter() - t0:.3f} s", flush=True)
 
+    for name in MESH_SMALL_CHIPS:  # first, so that --only-mesh waits for nothing else
+        put(f"mesh_{name}", lambda: mesh_small_bytes(name, "cpu"))
     small, small_pv = build_record(8, seed + 1)
     put("small_shard", lambda: small_proof(build_machine(), small, small_pv, "cpu"))
     put("mips_small_fib", lambda: small_fib_bytes("cpu"))
@@ -1133,6 +1180,9 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     print(f"ladder core: {info['global_clk']} cycles ({info['executor']} executor), {len(proofs)} shards "
           f"of up to {FULL_SHARD_CYCLES} cycles, executed and proved at the core config by the "
           f"{len(machine.airs)}-chip machine in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    placement = None
+    if not args.only_snark:
+        placement = placement_check(machine, pk, records, proofs, card)
     del records
     rp = RecursionProver(machine)
     if rp.shrink_machine.machine.config.fri != FriConfig.compressed() or \
@@ -1192,6 +1242,7 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     print("ladder stages: " + json.dumps({"card": card, "stages": {
         k: {kk: vv for kk, vv in v.items() if kk != "leaf_shapes"} for k, v in stages.items()}}), flush=True)
     launches = {k: v["launches"] for k, v in stages.items()}
+    launches["placement"] = placement
     if args.plonk_full:
         snark_plonk_full(rp, done["wrap"], pk.vk, program, card)
     elif args.only_snark:
@@ -1376,7 +1427,7 @@ def gnark_and_solidity_check(core_vk, program, pv_bytes: bytes):
         want.update({f"K{i}_X": kx, f"K{i}_Y": ky})
     if any(consts.get(n) != v for n, v in want.items()) or hashlib.sha256(vk_b).digest()[:4].hex() not in src:
         raise AssertionError("snark: the Solidity verifier's constants are not the vk's")
-    return len(src)
+    return vk_b, src
 
 
 def check_groth16_bytes(wg, core_vk, program, pw, client) -> dict:
@@ -1433,10 +1484,10 @@ def check_groth16_bytes(wg, core_vk, program, pw, client) -> dict:
     flipped[0] ^= 0x40  # alpha's compression flag: the other y
     expect_not_accepted("a flipped gnark flag bit", lambda: gnark.verify_gnark_groth16_algebraic(
         gnark.load_groth16_vk(bytes(flipped)), gproof, publics), gnark.GnarkDecodeError)
-    solidity_chars = gnark_and_solidity_check(core_vk, program, bytes(pw.public_values) or b"\x00")
-    return {"proof_bytes": len(proof_b), "vk_bytes": len(vk_b), "public_inputs": len(publics),
+    gnark_vk, solidity_src = gnark_and_solidity_check(core_vk, program, bytes(pw.public_values) or b"\x00")
+    return (gnark_vk, solidity_src), {"proof_bytes": len(proof_b), "vk_bytes": len(vk_b), "public_inputs": len(publics),
             "wrapped_bytes": len(wrapped_b), "container_bytes": len(pw_b), "gnark_vk_bytes": len(gvk_b),
-            "gnark_proof_bytes": len(gproof_b), "solidity_chars": solidity_chars}
+            "gnark_proof_bytes": len(gproof_b), "solidity_chars": len(solidity_src)}
 
 
 def snark_groth16_full(rp, wrapped, core_vk, program, info, card: str):
@@ -1454,7 +1505,7 @@ def snark_groth16_full(rp, wrapped, core_vk, program, info, card: str):
     wg, seconds, notes, launches, rss0 = snark_counts(run)
     rss1, peak = host_rss_gib()
     pw = ProofWithPublicValues([wg], info["public_values"], info["digest"], mode="groth16")
-    sizes = check_groth16_bytes(wg, core_vk, program, pw, ProverClient())
+    _gnark, sizes = check_groth16_bytes(wg, core_vk, program, pw, ProverClient())
     print("snark groth16 (full width): " + json.dumps({
         "card": card, "constraints": notes.get("constraints"), "variables": notes.get("variables"),
         "seconds": seconds, **sizes,
@@ -1549,7 +1600,8 @@ def sdk_phase(mode: str, card: str) -> dict:
     circuit on the host), verified, through its container bytes, a tampered
     wrap public value rejected; a Groth16 proof also through every byte API
     (``check_groth16_bytes``).  Returns the kernels' launches during the
-    SNARK itself (host code: zero)."""
+    SNARK itself (host code: zero), and for Groth16 the gnark vk bytes of
+    the byte-API check with the Solidity source rendered from them."""
     import copy
 
     from zkmips_tpu_torch.executor import execute_for_proving
@@ -1593,19 +1645,481 @@ def sdk_phase(mode: str, card: str) -> dict:
     if back.to_bytes() != b or not client.verify(vk, back, program):
         raise AssertionError(f"sdk {mode}: the container's bytes do not round-trip or verify")
     if mode == "groth16":
-        sizes = check_groth16_bytes(proof.proofs[0], vk, program, proof, client)
+        gnark, sizes = check_groth16_bytes(proof.proofs[0], vk, program, proof, client)
     else:
         bad = copy.deepcopy(proof)
         bad.proofs[0].wrap_public_values[0] = (bad.proofs[0].wrap_public_values[0] + 1) % P
         expect_not_accepted("a tampered wrap public value", lambda: client.verify(vk, bad, program),
                             VerificationError)
-        sizes = {"container_bytes": len(b)}
+        gnark, sizes = None, {"container_bytes": len(b)}
     _rss, peak = host_rss_gib()
     print(f"snark {mode} (test config): " + json.dumps({
         "card": card, **notes, "wall_seconds": round(wall, 4), "seconds": seconds, **sizes,
         "host_peak_rss_gib": round(peak, 3), "launches_whole_prove": launches,
         "launches_snark": snark_launches}), flush=True)
-    return snark_launches
+    return snark_launches, gnark
+
+
+# --- the last slice: the mesh step, placement, the network service, the CLI ------
+
+MESH_FIB_ITERS = 600_000  # the mesh phase's fib guest: about 3.6 M cycles, four 2^20-cycle shards
+MESH_SHAPE = (4, 2)  # ('shard', 'col')
+MESH_SMALL_SHARD = 64  # the card = CPU mesh check: four 64-cycle shards, as the reference's tests
+MESH_SMALL_CHIPS = ("Branch", "Cpu")
+NET_FIB_ITERS = 40_000  # the network phase's core-config fib: two 2^17-cycle shards
+NET_SHARD = 1 << 17
+CLI_ELF = "memory_sweep.elf"  # the CLI phase's fixture guest (393 cycles)
+WARMUP_KNOWN_FAILURE = "mixed30k"  # ROADMAP.md queue 3: its DIVU is not one the DivRem chip proves
+
+
+def mesh_grid(kind: str) -> list:
+    """The ('shard', 'col') grid: the visible cards in turn (one card
+    repeated when there is one), or CPU devices."""
+    rows, cols = MESH_SHAPE
+    if kind == "cpu":
+        return [["cpu"] * cols for _ in range(rows)]
+    n = torch.cuda.device_count()
+    return [[torch.device("cuda", (r * cols + c) % n) for c in range(cols)] for r in range(rows)]
+
+
+@functools.lru_cache(maxsize=1)
+def _mips_machine():
+    """The 49-chip machine whose fills make the mesh phase's traces (built
+    once: its constraint DAGs take seconds)."""
+    from zkmips_tpu_torch.machine.machine import MipsMachine
+
+    return MipsMachine()
+
+
+def real_shard_traces(program, shard_size: int, chip_name: str):
+    """The port's counterpart of ``__graft_entry__._real_shard_traces``: the
+    guest executed into shards, ``chip_name``'s trace of each (zero-padded to
+    one power-of-two height, Montgomery int32 on the host), the Global
+    chip's septic digest of each (Montgomery), each shard's canonical public
+    values, the chip, and the executor's info."""
+    from zkmips_tpu_torch import convert
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.machine.pv import NUM_PV
+    from zkmips_tpu_torch.ops import field as f
+    from zkmips_tpu_torch.stark.chip import Chip, pad_to_power_of_two
+
+    records, info = execute_for_proving(program, shard_size=shard_size)
+    m = _mips_machine()
+    chip_air = next(a for a in m.airs if a.name == chip_name)
+    global_air = next(a for a in m.airs if a.name == "Global")
+    raws, digests, pvs = [], [], []
+    for r in records:
+        m.generate_dependencies(r)
+        raws.append(np.asarray(chip_air.generate_trace(r, None), dtype=np.uint32))
+        digests.append(np.asarray(global_air.generate_trace(r, None), dtype=np.uint32)[-1, -14:])
+        pvs.append(m.shard_public_values(r))
+    h_max = 1 << (max([16] + [t.shape[0] for t in raws]) - 1).bit_length()
+    traces = f.to_monty(convert.to_torch(np.stack([pad_to_power_of_two(t, fixed_rows=h_max) for t in raws])))
+    return (traces, f.to_monty(convert.to_torch(np.stack(digests))), np.stack(pvs).astype(np.uint32),
+            Chip(chip_air, num_public_values=NUM_PV), info)
+
+
+def mesh_small_bytes(chip_name: str, kind: str) -> bytes:
+    """The mesh step over four 64-cycle shards of the fib guest on
+    ``chip_name``, on the card's grid or the CPU's: every output's bytes."""
+    from zkmips_tpu_torch import convert
+    from zkmips_tpu_torch.parallel import kernels as mk
+
+    program = fib_program((MESH_SMALL_SHARD * 4 - 24) // 7)
+    traces, digests, pvs, chip, _info = real_shard_traces(program, MESH_SMALL_SHARD, chip_name)
+    states0 = torch.stack([mk.transcript_prefix_state(pv) for pv in pvs])
+    out = mk.make_multichip_step(mesh_grid(kind), chip=chip)(traces, digests, pvs, states0)
+    return b"".join(convert.to_numpy(out[k]).tobytes() for k in sorted(out))
+
+
+def mesh_phase(args, dev, card: str, cpu) -> dict:
+    """The mesh step at full width: the fib guest's Cpu-chip traces in four
+    2^20-row shards over a 4 x 2 grid of the visible cards, held shard by
+    shard against the port's ``host_stage_reference`` on the card, whose
+    trees the plain Poseidon2 hashes (K1 and K2 at the step's commit and
+    fold shapes against their plain versions); the septic identity on the gathered digests, a tampered word rejected; K1 at
+    the step's widest leaf against its plain version; then the card's step
+    against the CPU's at 64-cycle shards (Branch and Cpu chips).  Returns
+    the kernels' launches over the step."""
+    from zkmips_tpu_torch.ops import field as f, poseidon2_cuda
+    from zkmips_tpu_torch.parallel import kernels as mk
+
+    if cpu is None:
+        raise AssertionError("mesh: the CPU side is needed for the card = CPU check")
+    program = fib_program(MESH_FIB_ITERS)
+    t0 = time.perf_counter()
+    traces, digests, pvs, chip, info = real_shard_traces(program, FULL_SHARD_CYCLES, "Cpu")
+    traces_s = time.perf_counter() - t0
+    s, h, w = traces.shape
+    if s != MESH_SHAPE[0] or h != FULL_SHARD_CYCLES:
+        raise AssertionError(f"mesh: {s} shards of {h} rows, not {MESH_SHAPE[0]} of {FULL_SHARD_CYCLES}")
+    grid = mesh_grid("cuda")
+    states0 = torch.stack([mk.transcript_prefix_state(pv) for pv in pvs])
+    step = mk.make_multichip_step(grid, chip=chip)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = step(traces, digests, pvs, states0)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches, shapes = dict(poseidon2_cuda.LAUNCHES), set(poseidon2_cuda.HASH_SHAPES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("poseidon2_hash_rows", "poseidon2_compress"):
+        if launches[name] == 0:
+            raise AssertionError(f"mesh: kernel {name} was not launched by the mesh step")
+    t0 = time.perf_counter()
+    poseidon2_cuda.reset_launches()
+    keys = (("main_roots", "main_root"), ("perm_roots", "perm_root"), ("quotient_roots", "quotient_root"),
+            ("fold_roots", "fold_roots"), ("final_polys", "final_poly"), ("cum_sums", "cum_sum"),
+            ("states", "state"))
+    for i in range(s):
+        ref = mk.host_stage_reference(chip, traces[i].to(dev), pvs[i])
+        for key, ref_key in keys:
+            if not torch.equal(out[key][i].cpu(), ref[ref_key].cpu()):
+                raise AssertionError(f"mesh: {key} of shard {i} differs from the plain host replay")
+    replay_s = time.perf_counter() - t0
+    if any(poseidon2_cuda.LAUNCHES.values()):
+        raise AssertionError(f"mesh: the plain host replay launched kernels: {dict(poseidon2_cuda.LAUNCHES)}")
+    if not mk.septic_identity_host(out["all_digests"]):
+        raise AssertionError("mesh: the septic identity rejected the gathered digests")
+    bad = out["all_digests"].clone()
+    bad[1, 3] = f.to_monty_int(12345)
+    if mk.septic_identity_host(bad):
+        raise AssertionError("mesh: the septic identity accepted a tampered digest")
+    print("mesh step: " + json.dumps({
+        "card": card, "guest_cycles": info["global_clk"], "chip": "Cpu", "shards": s, "rows": h, "width": w,
+        "mesh": list(MESH_SHAPE), "devices": sorted({str(d) for row in grid for d in row}),
+        "seconds": {"traces": round(traces_s, 4), "step": round(step_s, 4), "host_replay": round(replay_s, 4)},
+        "peak_gib": round(peak, 3), "launches": launches, "fold_layers": int(out["fold_roots"].shape[1]),
+    }), flush=True)
+    print("mesh: every output equals the plain host replay shard by shard (its trees hashed by the plain "
+          "torch Poseidon2, no kernel launched); the septic identity accepted the gathered digests and "
+          "rejected a tampered word", flush=True)
+    widest_leaf_check("the mesh step's", shapes, args.seed + 10, dev, card)
+    for name in MESH_SMALL_CHIPS:
+        t0 = time.perf_counter()
+        if mesh_small_bytes(name, "cuda") != cpu.get(f"mesh_{name}"):
+            raise AssertionError(f"mesh small: the card's step on the {name} chip differs from the CPU's")
+        print(f"mesh small: {name} chip, four {MESH_SMALL_SHARD}-cycle shards on a {MESH_SHAPE[0]} x "
+              f"{MESH_SHAPE[1]} grid, card and CPU outputs equal (card {time.perf_counter() - t0:.3f} s)",
+              flush=True)
+    return launches
+
+
+def placement_check(machine, pk, records, proofs, card: str) -> dict:
+    """``MipsMachine.prove(devices=...)`` over the ladder's core shards: every
+    visible card, at least two entries (the one card twice): the bytes must
+    be the single-device proofs'.  With two cards or more, K1 is also
+    launched on card 1 from a thread whose current device is 0.  Returns the
+    kernels' launches over the placed prove."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0", "cuda:0"]
+    want = codec.encode_core_proof(proofs)
+    torch.cuda.synchronize()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    placed = machine.prove(pk, records, devices=devices)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    if codec.encode_core_proof(placed) != want:
+        raise AssertionError("placement: the placed proofs' bytes differ from the single-device proofs'")
+    for name, k in launches.items():
+        if k == 0:
+            raise AssertionError(f"placement: kernel {name} was not launched")
+    print(f"placement: {len(placed)} shards proved with devices={devices} in {wall:.3f} s, bytes equal to "
+          f"the single-device proofs ({len(want)} bytes); launches {launches} [{card}]", flush=True)
+    if n < 2:
+        print("placement: one card, so a launch on a second card from a thread whose current device is 0 "
+              "was not exercised", flush=True)
+        return launches
+    import threading
+
+    from zkmips_tpu_torch.ops import poseidon2 as p2
+
+    m = rand_field(np.random.default_rng(12), (1 << 16, 85), torch.device("cuda", 1))
+    got = {}
+
+    def launch():
+        try:
+            torch.cuda.set_device(0)
+            got["out"] = poseidon2_cuda.hash_rows(m)
+        except Exception as e:  # re-raised in the main thread
+            got["error"] = e
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join()
+    if "error" in got:
+        raise got["error"]
+    err = max_err(got["out"], p2.hash_matrix_rows_plain(m))
+    if err != 0 or got["out"].device != m.device:
+        raise AssertionError("placement: K1 on card 1 from a thread on card 0 disagrees with its plain version")
+    print(f"placement: K1 launched on cuda:1 from a thread whose current device is 0, max_abs_err {err}",
+          flush=True)
+    return launches
+
+
+def network_phase(card: str):
+    """A ``ProverServer`` at the core config and one at the test config on
+    the card, in background threads, with ``ZKM_NETWORK_KEY`` set; the client
+    in a subprocess with CUDA hidden (``--network-client``).  The served core
+    proofs' bytes must equal the local ones, and the served shrink proof
+    must be accepted here."""
+    import secrets
+
+    from zkmips_tpu_torch.executor import execute_for_proving
+    from zkmips_tpu_torch.sdk import ProverClient
+    from zkmips_tpu_torch.sdk.network import ProverServer
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    out = os.path.join(ROOT, "build", "chip_smoke_net")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    os.environ["ZKM_NETWORK_KEY"] = secrets.token_hex(16)
+    servers = [ProverServer(ProverClient(config=StarkConfig.core())),
+               ProverServer(ProverClient(config=StarkConfig.test()))]
+    try:
+        for srv in servers:
+            srv.serve_background()
+        program = fib_program(NET_FIB_ITERS)
+        local = servers[0].client
+        pk, _vk = local.setup(program)
+        records, _ = execute_for_proving(program, shard_size=NET_SHARD)
+        t0 = time.perf_counter()
+        want = codec.encode_core_proof(local.machine.prove(pk, records))
+        local_s = time.perf_counter() - t0
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--network-client", out,
+                               *[f"http://127.0.0.1:{srv.port}" for srv in servers]],
+                              env=env, capture_output=True, text=True, timeout=900)
+        client_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"network: the client exited with {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(out, "core.bin"), "rb") as fh:
+            if fh.read() != want:
+                raise AssertionError("network: the served core proofs' bytes differ from the local proofs'")
+        sdk = e2e_fib_program(SDK_FIB_ITERS)
+        _pk, vk = servers[1].client.setup(sdk)
+        with open(os.path.join(out, "shrink.bin"), "rb") as fh:
+            sh, _cfg = codec.decode_compressed_proof(fh.read())
+        if not servers[1].client._recursion_prover().verify_compressed(vk, sdk, sh):
+            raise AssertionError("network: the served shrink proof was not accepted")
+        print(f"network: served core proofs equal the local ones ({len(want)} bytes; local prove "
+              f"{local_s:.3f} s), the served shrink proof accepted; client process {client_s:.3f} s "
+              f"[{card}]", flush=True)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+        del os.environ["ZKM_NETWORK_KEY"]
+
+
+def network_client(out: str, core_url: str, test_url: str) -> int:
+    """The network phase's client, in a process without a GPU: the core
+    server's /setup and /prove_core of the fib; the test server's /setup,
+    /prove, /verify, then /prove_core -> /compress -> /shrink -> /wrap; a
+    failing job must raise; an unsigned POST must get 403."""
+    import http.client
+    import pickle
+
+    from zkmips_tpu_torch.sdk import ProverClient, ZKMStdin
+    from zkmips_tpu_torch.sdk.network import NetworkProver
+    from zkmips_tpu_torch.verifier import stark_codec as codec
+
+    if torch.cuda.is_available():
+        raise AssertionError("network client: a GPU is visible")
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        seconds[name] = round(time.perf_counter() - t0, 4)
+        return r
+
+    core = NetworkProver(core_url)
+    if not core.ready() or core.config != "core":
+        raise AssertionError("network client: the core server is not ready")
+    program = fib_program(NET_FIB_ITERS)
+    pk, _vk = timed("core /setup", lambda: core.setup(program))
+    proofs = timed("core /prove_core", lambda: core.prove_core(pk, program, shard_size=NET_SHARD))
+    with open(os.path.join(out, "core.bin"), "wb") as fh:
+        fh.write(codec.encode_core_proof(proofs))
+
+    client = ProverClient(backend="network", endpoint=test_url)
+    sdk = e2e_fib_program(SDK_FIB_ITERS)
+    pk, vk = timed("test /setup", lambda: client.setup(sdk))
+    proof = timed("test /prove", lambda: client.prove(pk, sdk, ZKMStdin(), shard_size=SDK_SHARD))
+    if not timed("test /verify", lambda: client.verify(vk, proof, sdk)):
+        raise AssertionError("network client: /verify rejected the served proof")
+    shards = timed("test /prove_core", lambda: client.remote.prove_core(pk, sdk, shard_size=SDK_SHARD))
+    if codec.encode_core_proof(shards, config="test") != codec.encode_core_proof(proof.proofs, config="test"):
+        raise AssertionError("network client: /prove_core and /prove gave different shard proofs")
+    cp = timed("test /compress", lambda: client.remote.compress(vk, shards))
+    sh = timed("test /shrink", lambda: client.remote.shrink(cp))
+    wp = timed("test /wrap", lambda: client.remote.wrap(sh))
+    if (cp.stage, sh.stage, wp.stage) != ("compress", "shrink", "wrap"):
+        raise AssertionError("network client: the ladder's stages came back wrong")
+    with open(os.path.join(out, "shrink.bin"), "wb") as fh:
+        fh.write(codec.encode_compressed_proof(sh, config="test"))
+    try:
+        client.prove(None, sdk, ZKMStdin(), shard_size=SDK_SHARD)
+    except RuntimeError as e:
+        if "remote job failed" not in str(e):
+            raise
+    else:
+        raise AssertionError("network client: a failing job did not raise")
+    conn = http.client.HTTPConnection(test_url[len("http://"):], timeout=60)
+    conn.request("POST", "/setup", body=pickle.dumps({"program": sdk}))
+    status = conn.getresponse().status
+    conn.close()
+    if status != 403:
+        raise AssertionError(f"network client: an unsigned POST got {status}, not 403")
+    print("network client: " + json.dumps({
+        "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "core_shards": len(proofs),
+        "seconds": seconds, "failing_job": "raised", "unsigned_post": status}), flush=True)
+    return 0
+
+
+def synthetic_gnark_vk() -> tuple:
+    """gnark vk bytes of a key made of fixed curve points (for ``--only-cli``,
+    which has no SDK phase), and the Solidity source rendered in-process."""
+    import types
+
+    from zkmips_tpu_torch.snark import bn254_curve as ec
+    from zkmips_tpu_torch.verifier import gnark, solidity
+
+    vk = types.SimpleNamespace(
+        alpha1=ec.g1_mul(ec.G1_GEN, 3), beta2=ec.g2_mul(ec.G2_GEN, 5), gamma2=ec.g2_mul(ec.G2_GEN, 7),
+        delta2=ec.g2_mul(ec.G2_GEN, 11), ic=[ec.g1_mul(ec.G1_GEN, k) for k in (13, 17, 19)])
+    vk_b = gnark.dump_groth16_vk(vk)
+    return vk_b, solidity.render_groth16_verifier(vk_b)
+
+
+def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
+    """Subprocesses of ``python3 -m zkmips_tpu_torch.cli`` (environment
+    ``env``) on the card, all at once: execute, vkey, prove (core config:
+    the bytes of the client's proof in this process), prove --config test
+    --mode compressed (its container decoded here), verify of this process's
+    proof and of it with a flipped byte (exit 1), serve with prove
+    --endpoint (the served proof verified here), and solidity-verifier on
+    ``gnark``'s vk bytes (the source rendered in this process).  With
+    ``warmup``, ``warmup --quick`` runs beside them and must fail on exactly
+    the corpus's ``mixed30k`` guest."""
+    from zkmips_tpu_torch.executor import Program
+    from zkmips_tpu_torch.sdk import ProofWithPublicValues, ProverClient
+    from zkmips_tpu_torch.stark.machine import StarkConfig
+
+    d = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    elf = os.path.join(ROOT, FIXTURES, CLI_ELF)
+    path = {k: os.path.join(d, f"{k}.bin") for k in ("mine", "bad", "core", "compressed", "net")}
+    procs = {}
+
+    def start(name, *argv):
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "zkmips_tpu_torch.cli", *argv], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def finish(name, rc: int = 0) -> str:
+        t0, p = procs.pop(name)
+        out, err = p.communicate(timeout=900)
+        if p.returncode != rc:
+            raise AssertionError(f"cli {name}: exit code {p.returncode}, not {rc}: {out[-3000:]}{err[-3000:]}")
+        print(f"cli {name}: exit {p.returncode} in {time.perf_counter() - t0:.1f} s: "
+              + " | ".join(out.strip().splitlines()[-3:]), flush=True)
+        return out
+
+    serve = None
+    try:
+        t_phase = time.perf_counter()
+        serve = subprocess.Popen([sys.executable, "-m", "zkmips_tpu_torch.cli", "serve", "--port", "0",
+                                  "--config", "test"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        if warmup:
+            start("warmup --quick", "warmup", "--quick")
+        start("execute", "execute", elf)
+        start("vkey", "vkey", elf)
+        start("prove", "prove", elf, "-o", path["core"])
+        start("prove compressed", "prove", elf, "-o", path["compressed"], "--config", "test", "--mode", "compressed")
+        vk_bin = os.path.join(d, "groth16_vk.bin")
+        with open(vk_bin, "wb") as fh:
+            fh.write(gnark[0])
+        start("solidity-verifier", "solidity-verifier", vk_bin, "-o", os.path.join(d, "ZKMVerifier.sol"))
+        program = Program.from_elf(open(elf, "rb").read())
+        local = ProverClient(config=StarkConfig.core())
+        pk, vk = local.setup(program)
+        mine = local.prove(pk, program).to_bytes()
+        bad = bytearray(mine)
+        bad[len(bad) // 2] ^= 1
+        for key, data in (("mine", mine), ("bad", bytes(bad))):
+            with open(path[key], "wb") as fh:
+                fh.write(data)
+        start("verify", "verify", elf, path["mine"])
+        start("verify flipped byte", "verify", elf, path["bad"])
+        line = serve.stdout.readline()
+        if "listening on http://" not in line:
+            raise AssertionError(f"cli serve: {line!r} {serve.stderr.read()[-3000:] if serve.poll() else ''}")
+        start("prove --endpoint", "prove", elf, "-o", path["net"], "--endpoint", line.strip().rsplit(" ", 1)[-1])
+
+        rep = local.execute(program)
+        want = f"cycles={rep.total_instruction_count} exit={rep.exit_code}\n"
+        if rep.public_values:
+            want += f"public_values: {rep.public_values.hex()}\n"
+        if finish("execute") != want:
+            raise AssertionError("cli execute: the output is not the client's report")
+        if finish("vkey") != "vk: " + "-".join(f"{int(x):08x}" for x in vk.prep_root) + "\n":
+            raise AssertionError("cli vkey: the line is not the verifying key's")
+        finish("prove")
+        with open(path["core"], "rb") as fh:
+            if fh.read() != mine:
+                raise AssertionError("cli prove: the proof's bytes are not the client's in this process")
+        finish("prove compressed")
+        # another process verifies a compressed proof only with the prover's vk map (as the
+        # reference's): here its bytes are decoded and re-encoded
+        with open(path["compressed"], "rb") as fh:
+            compressed = fh.read()
+        back = ProofWithPublicValues.from_bytes(compressed)
+        if back.mode != "compressed" or back.proofs[0].stage != "compress" or back.to_bytes() != compressed:
+            raise AssertionError("cli prove --mode compressed: the file is not a compress proof's container")
+        if "verification: OK" not in finish("verify"):
+            raise AssertionError("cli verify: the proof was not accepted")
+        if "verification: FAILED" not in finish("verify flipped byte", rc=1):
+            raise AssertionError("cli verify: the flipped byte was not reported")
+        finish("prove --endpoint")
+        test_client = ProverClient(config=StarkConfig.test())
+        _pk, test_vk = test_client.setup(program)
+        if not test_client.verify(test_vk, ProofWithPublicValues.load(path["net"]), program):
+            raise AssertionError("cli prove --endpoint: the served proof was not accepted")
+        finish("solidity-verifier")
+        with open(os.path.join(d, "ZKMVerifier.sol")) as fh:
+            if fh.read() != gnark[1]:
+                raise AssertionError("cli solidity-verifier: the source is not the one rendered in-process")
+        if warmup:
+            # the corpus's mixed30k guest (a copy of the reference's) encodes DIVU with rd = $t7;
+            # the DivRem chip models rd = 32 (HI/LO), so its LogUp sums do not balance in either
+            # package: warmup must report exactly that guest and exit 1
+            out = finish("warmup --quick", rc=1)
+            failed = [ln for ln in out.splitlines() if ": FAILED" in ln]
+            if len(failed) != 1 or not failed[0].startswith(f"warm {WARMUP_KNOWN_FAILURE}: FAILED") \
+                    or "local cumulative sums do not balance" not in failed[0]:
+                raise AssertionError(f"cli warmup --quick: unexpected failures {failed}")
+        print(f"cli: every subcommand passed in {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    finally:
+        for _t0, p in procs.values():
+            p.kill()
+            p.wait()
+        if serve is not None:
+            serve.terminate()
+            serve.wait(timeout=60)
 
 
 def full_phase(args, dev, card: str, cpu: CpuSide) -> dict:
@@ -1640,13 +2154,24 @@ def main() -> int:
                            "(exit code 0, no kernels line, no last line)")
     only.add_argument("--only-sdk", choices=("groth16", "plonk"),
                       help="run the SDK phase alone in this mode (exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-mesh", action="store_true",
+                      help="run the mesh phase alone (exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-network", action="store_true",
+                      help="run the network phase alone (exit code 0, no kernels line, no last line)")
+    only.add_argument("--only-cli", action="store_true",
+                      help="run the CLI phase alone, with warmup --quick (exit code 0, no kernels line, "
+                           "no last line)")
     only.add_argument("--cpu-side", metavar="DIR", help=argparse.SUPPRESS)  # the second process
+    only.add_argument("--network-client", nargs=3, metavar=("DIR", "CORE_URL", "TEST_URL"),
+                      help=argparse.SUPPRESS)  # the network phase's client process, without a GPU
     ap.add_argument("--plonk-full", action="store_true",
                     help="with --only-snark: PLONK over the full-width wrap proof in place of Groth16")
     args = ap.parse_args()
     if args.plonk_full and not args.only_snark:
         ap.error("--plonk-full goes with --only-snark")
 
+    if args.network_client:
+        return network_client(*args.network_client)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1662,7 +2187,8 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    cpu = None if args.only_kernels or args.only_snark or args.only_sdk else CpuSide(args)
+    cpu = None if args.only_kernels or args.only_snark or args.only_sdk or args.only_network \
+        or args.only_cli else CpuSide(args)
     finished = False
     try:
         finished = run_phases(args, dev, rng, card, cpu)
@@ -1714,6 +2240,15 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
         return False
     if args.only_sdk:
         sdk_phase(args.only_sdk, card)
+        return False
+    if args.only_mesh:
+        mesh_phase(args, dev, card, cpu)
+        return False
+    if args.only_network:
+        network_phase(card)
+        return False
+    if args.only_cli:
+        cli_phase(card, synthetic_gnark_vk(), True, dict(os.environ))
         return False
 
     machine = build_machine()
@@ -1799,10 +2334,23 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
         records[name]["ladder_launches"] = {stage: ladder[stage][name] for stage in LADDER_STAGES}
         if sum(records[name]["ladder_launches"].values()) == 0:
             raise AssertionError(f"kernel {name} was not launched on the recursion ladder")
-    snark = sdk_phase("groth16", card)
+    snark, gnark = sdk_phase("groth16", card)
     clock.done("sdk groth16")
     for name in records:
         records[name]["snark_launches"] = snark.get(name, 0)
+        records[name]["placement_launches"] = ladder["placement"][name]
+    mesh = mesh_phase(args, dev, card, cpu)
+    clock.done("mesh")
+    for name in records:
+        records[name]["mesh_launches"] = mesh[name]
+    # the CLI's processes run beside the network phase: neither reads the launch counts
+    from zkmips_tpu_torch.utils.pool import make_pool
+
+    with make_pool(1) as pool:
+        cli = pool.submit(cli_phase, card, gnark, False, dict(os.environ))
+        network_phase(card)
+        cli.result()
+    clock.done("network and cli")
     cpu.close(True)
     print_kernels(records)
     return True

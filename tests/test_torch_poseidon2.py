@@ -229,3 +229,108 @@ def test_compress_edge_vectors_kernel(cuda):
     st = T(s, cuda)
     assert np.array_equal(N(tp.compress(st[:, :8], st[:, 8:])), want)
     assert np.array_equal(N(tp.compress(T(l.T.copy(), cuda).T, st[:, 8:])), want)
+
+
+# ---- the wrappers' device guard and the constants' lock -----------------------
+
+
+class _StubLib:
+    """Stands in for the built library: records, at each call, which device
+    the caller had made current."""
+
+    def __init__(self, current):
+        self.current, self.calls, self.constants = current, [], []
+
+    def zkm_p2_error_string(self, err):
+        return b"stub"
+
+    def zkm_p2_set_constants(self, ptr):
+        import time
+
+        time.sleep(0.05)  # widen the window two threads could both enter
+        self.constants.append(self.current[-1])
+        return 0
+
+    def zkm_p2_hash_rows(self, *args):
+        self.calls.append((self.current[-1], args[-1]))
+        return 0
+
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """The wrappers' CUDA surface replaced by a stub: ``torch.cuda.device``
+    pushes its device on ``current``, the library records what was current
+    at each call."""
+    import contextlib
+
+    from zkmips_tpu_torch.ops import poseidon2_cuda as k
+
+    current = [0]
+
+    @contextlib.contextmanager
+    def device(d):
+        current.append(d.index if isinstance(d, torch.device) else d)
+        try:
+            yield
+        finally:
+            current.pop()
+
+    lib = _StubLib(current)
+    monkeypatch.setattr(k, "_LIB", lib)
+    monkeypatch.setattr(k, "_CONSTANTS_ON", set())
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[-1])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("S", (), {"cuda_stream": 1000 + d.index})())
+    return k, lib
+
+
+class _FakeOut:
+    def __init__(self, index):
+        self.device = torch.device("cuda", index)
+        self.shape = (4, 8)
+
+    def data_ptr(self):
+        return 4096
+
+
+def test_launch_makes_the_outputs_device_current(stub_launch):
+    """A thread whose current device is 0 launching on card 1's tensor:
+    the constants are loaded and the kernel launched with card 1 current,
+    on card 1's stream."""
+    k, lib = stub_launch
+    before = k.LAUNCHES["poseidon2_hash_rows"]
+    k._launch("poseidon2_hash_rows", "zkm_p2_hash_rows", _FakeOut(1), 1, 2, 3)
+    assert lib.constants == [1]
+    assert lib.calls == [(1, 1001)]
+    assert k.LAUNCHES["poseidon2_hash_rows"] == before + 1
+
+
+def test_constants_are_loaded_once_per_device_under_threads(stub_launch):
+    import threading
+
+    k, lib = stub_launch
+    start = threading.Barrier(6)
+
+    def go(index):
+        start.wait()
+        k._ready(torch.device("cuda", index))
+
+    threads = [threading.Thread(target=go, args=(i % 2 + 1,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(lib.constants) == [1, 2]
+    assert k._CONSTANTS_ON == {1, 2}
+
+
+@pytest.mark.gpu
+def test_hash_rows_on_a_second_card_from_device_0():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    m = rand_fp(12, (1024, 21))
+    torch.cuda.set_device(0)
+    got = tp.hash_matrix_rows(T(m, torch.device("cuda", 1)))
+    assert got.device == torch.device("cuda", 1)
+    assert np.array_equal(N(got), jp.hash_matrix_rows(m))

@@ -100,11 +100,6 @@ def test_mock_mode():
     assert ProofWithPublicValues.from_bytes(proof.to_bytes()).to_bytes() == proof.to_bytes()
 
 
-def test_network_backend_waits_for_its_module():
-    with pytest.raises(NotImplementedError, match="sdk/network.py"):
-        ProverClient(backend="network", endpoint="http://localhost:1")
-
-
 @pytest.fixture(scope="module")
 def core_proofs():
     """The commit guest proved in core mode at the test config by both

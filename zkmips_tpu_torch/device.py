@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def current(device: torch.device):
+    """A context that makes ``device`` the calling thread's current CUDA
+    device (a no-op for any other device): a worker thread proving on one
+    card of several launches there."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import current, resolve_device
 from ..executor.events import ExecutionRecord
 from ..ops import field as ff, septic
 from ..stark.chip import Chip
@@ -194,28 +194,45 @@ class MipsMachine:
         _chain_deferred(deferred, len(records), records[-1].public_values)
         return records + deferred
 
-    def prove(self, pk, records: list, device=None, workers: int | None = None) -> list:
+    def prove(self, pk, records: list, device=None, workers: int | None = None,
+              devices: list | None = None) -> list:
         """Prove all shards on ``device`` (CUDA unless the caller names
         another).  ``workers`` > 1 pipelines shards across threads (the
         analog of the reference's trace-gen/prove worker pool,
         crates/core/machine/src/utils/prove.rs:157-520 -- numpy and torch
         release the GIL, so host trace generation overlaps device proving);
         the default is one shard at a time, since two shards in flight
-        double the peak device memory.  Proof bytes do not depend on the
-        placement.  Shard-parallel proving across several GPUs is not
-        ported yet."""
-        device = resolve_device(device)
+        double the peak device memory.
+
+        ``devices``: shard-parallel proving over several devices, in place
+        of ``device``.  Shard i is proved on ``devices[i % len(devices)]``
+        by a worker thread that makes that device current and proves with a
+        copy of ``pk`` on it (``ProvingKey.to``, made once per device before
+        the workers start); ``workers`` is raised to ``len(devices)``.  A
+        list may repeat a device.  Proof bytes do not depend on the
+        placement."""
+        placed = _placement(pk, device, devices)
         records = self.split_deferred(records)
+        if devices:
+            workers = max(workers or 1, len(devices))
         if workers is None or workers <= 1 or len(records) <= 1:
-            return [self.prove_record(pk, r, device=device) for r in records]
+            return [self._prove_placed(placed, i, r) for i, r in enumerate(records)]
         from ..utils.pool import make_pool
 
         with make_pool(workers) as pool:
-            futs = [pool.submit(self.prove_record, pk, r, device) for r in records]
+            futs = [pool.submit(self._prove_placed, placed, i, r) for i, r in enumerate(records)]
             return [f.result() for f in futs]
 
+    def _prove_placed(self, placed: list, i: int, record):
+        """Prove shard ``i`` on its device of ``placed`` ([(device, pk)]),
+        with that device current in this thread."""
+        device, pk = placed[i % len(placed)]
+        with current(device):
+            return self.prove_record(pk, record, device=device)
+
     def prove_streaming(self, pk, record_iter, device=None, workers: int = 1,
-                        max_inflight: int = 3, split_threshold: int | None = None) -> list:
+                        max_inflight: int = 3, split_threshold: int | None = None,
+                        devices: list | None = None) -> list:
         """Streaming prove: consume records as the executor produces them
         (``executor.stream_for_proving``) and prove them in a bounded worker
         pool -- the analog of the reference's checkpoint-channel pipeline
@@ -230,21 +247,25 @@ class MipsMachine:
         another).  ``workers`` defaults to 1: one keccak shard peaks at about
         33 GiB of device memory and two in flight double it.  With one
         worker the executor, running in the caller's thread, still overlaps
-        the proving in the pool."""
+        the proving in the pool.  ``devices`` places shard i on
+        ``devices[i % len(devices)]`` as ``prove`` does, with at least
+        ``len(devices)`` workers."""
         import threading
 
         from ..utils.pool import make_pool
 
-        device = resolve_device(device)
+        placed = _placement(pk, device, devices)
+        if devices:
+            workers = max(workers, len(devices))
         if split_threshold is None:
             from ..utils.opts import ZKMCoreOpts
 
             split_threshold = ZKMCoreOpts.default().split_threshold
         sem = threading.Semaphore(max_inflight)
 
-        def prove_one(r):
+        def prove_one(i, r):
             try:
-                return self.prove_record(pk, r, device=device)
+                return self._prove_placed(placed, i, r)
             finally:
                 sem.release()
 
@@ -256,7 +277,7 @@ class MipsMachine:
                 deferred.extend(r.split(False, split_threshold))
                 tail = r
                 sem.acquire()
-                futures.append(pool.submit(prove_one, r))
+                futures.append(pool.submit(prove_one, len(futures), r))
             n_exec = len(futures)
             # deferred shards follow the final execution shard with chained
             # public values (the rules of split_deferred)
@@ -264,7 +285,7 @@ class MipsMachine:
                 _chain_deferred(deferred, n_exec, tail.public_values)
             for d in deferred:
                 sem.acquire()
-                futures.append(pool.submit(prove_one, d))
+                futures.append(pool.submit(prove_one, len(futures), d))
             return [f.result() for f in futures]
 
     # ----------------------------------------------------------------- verify
@@ -378,6 +399,19 @@ class MipsMachine:
                 gs = [int(v) for v in ov.global_sum.tolist()]
                 return (gs[:7], gs[7:])
         raise VerificationError("proof missing Global chip")
+
+
+def _placement(pk, device, devices) -> list:
+    """[(device, the proving key on it)]: ``devices`` (each resolved, a
+    copy of ``pk`` made once per distinct device), else ``device`` alone."""
+    if not devices:
+        return [(resolve_device(device), pk)]
+    devs = [resolve_device(d) for d in devices]
+    keys: dict = {}
+    for d in devs:
+        if d not in keys:
+            keys[d] = pk if pk is None or d == pk.device else pk.to(d)
+    return [(d, keys[d]) for d in devs]
 
 
 def _chain_deferred(deferred: list, n_exec: int, tail):

@@ -41,6 +41,7 @@ _COUNT_LOCK = threading.Lock()  # shards proved in several threads launch side b
 
 _LIB = None
 _BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
+_READY_LOCK = threading.Lock()  # threads load the library and each device's constants once
 _CONSTANTS_ON: set = set()  # device indices whose constant memory is loaded
 
 
@@ -152,7 +153,9 @@ def load(path: Path) -> ctypes.CDLL:
 def _lib():
     global _LIB
     if _LIB is None:
-        _LIB = load(build())
+        with _READY_LOCK:
+            if _LIB is None:
+                _LIB = load(build())
     return _LIB
 
 
@@ -167,10 +170,12 @@ def _ready(device: torch.device):
     lib = _lib()
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _CONSTANTS_ON:
-        rc = p2.kernel_constants()
-        with torch.cuda.device(idx):
-            _check(lib, lib.zkm_p2_set_constants(rc.ctypes.data), "set_constants")
-        _CONSTANTS_ON.add(idx)
+        with _READY_LOCK:
+            if idx not in _CONSTANTS_ON:  # another thread may have loaded them while this one waited
+                rc = p2.kernel_constants()
+                with torch.cuda.device(idx):
+                    _check(lib, lib.zkm_p2_set_constants(rc.ctypes.data), "set_constants")
+                _CONSTANTS_ON.add(idx)
     return lib
 
 
@@ -192,12 +197,15 @@ def _checked(t: torch.Tensor, width: int | None, what: str) -> torch.Tensor:
 
 def _launch(name: str, fn: str, out: torch.Tensor, *args):
     """Launch ``fn(*args, out, stream)`` on ``out``'s device, one row of
-    ``out`` per thread; counts the launch."""
+    ``out`` per thread; counts the launch.  The C entry point launches on
+    the thread's current device, so ``out``'s device is made current around
+    the call, whatever device the calling thread had."""
     if out.shape[0] == 0:
         return out
     lib = _ready(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    _check(lib, getattr(lib, fn)(*args, out.data_ptr(), stream), name)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        _check(lib, getattr(lib, fn)(*args, out.data_ptr(), stream), name)
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
     return out

@@ -4,8 +4,10 @@ The analog of the reference SDK (crates/sdk/src/lib.rs:46-287 ProverClient,
 src/proof.rs ZKMProofWithPublicValues, src/io ZKMStdin): a builder-flavored
 API over the core machine, in the role of the reference SDK's ``cuda``
 backend.  Backends: "local" (this host, proving on ``device``: CUDA unless
-the caller passes another, through ``resolve_device``) and "mock" (execute
-only, empty proof).  The "network" backend waits for ``sdk/network.py``.
+the caller passes another, through ``resolve_device``), "mock" (execute
+only, empty proof) and "network" (a remote ``sdk.network.ProverServer`` at
+``endpoint``: setup, prove and verify are forwarded, and no device is
+resolved on this side).
 
 Proving modes: "core" (one STARK per shard), "compressed" (the recursion
 ladder's compress), "groth16" and "plonk" (compress, shrink, wrap under the
@@ -17,6 +19,7 @@ reference package's, with no pickle anywhere.
 from __future__ import annotations
 
 import struct
+import threading
 from dataclasses import dataclass, field
 
 from ..device import resolve_device
@@ -165,18 +168,28 @@ class ProverClient:
 
     def __init__(self, backend: str = "local", config: StarkConfig | None = None, device=None,
                  endpoint: str | None = None):
-        """backend: "local" | "mock"; ``device`` is where setup and every
-        proof run (CUDA unless the caller passes another, e.g. "cpu").
-        ``endpoint`` belongs to the network backend, which raises here."""
-        if backend == "network":
-            raise NotImplementedError(
-                "the network backend needs zkmips_tpu_torch/sdk/network.py, which is not ported yet"
-            )
-        if backend not in ("local", "mock"):
+        """backend: "local" | "mock" | "network"; ``device`` is where setup
+        and every proof run (CUDA unless the caller passes another, e.g.
+        "cpu"); the network backend proves on the server at ``endpoint``
+        ("http://host:port"), at the server's config on the server's device:
+        it takes neither, and builds no machine."""
+        if backend not in ("local", "mock", "network"):
             raise ValueError(f"unknown backend {backend!r}")
+        self.remote = None
+        if backend == "network":
+            from .network import NetworkProver
+
+            if not endpoint:
+                raise ValueError("the network backend needs endpoint='http://host:port'")
+            if device is not None:
+                raise ValueError("the network backend proves on the server's device, not on one given here")
+            if config is not None:
+                raise ValueError("the network backend proves at the server's config, not at one given here")
+            self.remote = NetworkProver(endpoint)
         self.backend = backend
-        self.machine = MipsMachine(config or StarkConfig.core())
+        self.machine = None if self.remote is not None else MipsMachine(config or StarkConfig.core())
         self.device = device
+        self._rp_lock = threading.Lock()
 
     @staticmethod
     def new(**kw) -> "ProverClient":
@@ -189,7 +202,10 @@ class ProverClient:
     # ------------------------------------------------------------------ api
 
     def setup(self, program: Program):
-        """-> (pk, vk) for the given guest program, on the client's device."""
+        """-> (pk, vk) for the given guest program, on the client's device
+        (from the server, its tensors on the CPU, for the network backend)."""
+        if self.remote is not None:
+            return self.remote.setup(program)
         pk = self.machine.setup(program, device=self._device())
         return pk, pk.vk
 
@@ -237,6 +253,10 @@ class ProverClient:
         SNARK's ``randbelow`` (default ``secrets.randbelow``)."""
         if mode not in ("core", "compressed", "groth16", "plonk"):
             raise ValueError(f"unknown proof mode {mode!r}")
+        if self.remote is not None:
+            if rng is not None:
+                raise ValueError("the network backend's SNARK draws its randomness on the server")
+            return self.remote.prove(pk, program, stdin, shard_size=shard_size, mode=mode)
         device = None if self.backend == "mock" else self._device()
         records, info = execute_for_proving(
             program,
@@ -265,6 +285,8 @@ class ProverClient:
                                      mode=mode, config=cfg_name)
 
     def verify(self, vk, proof: ProofWithPublicValues, program: Program) -> bool:
+        if self.remote is not None:
+            return self.remote.verify(vk, proof, program)
         if proof.mode == "mock":
             return True
         if proof.mode == "compressed":
@@ -287,11 +309,14 @@ class ProverClient:
         return "core" if self.machine.machine.config.fri.num_queries >= 84 else "test"
 
     def _recursion_prover(self):
-        if not hasattr(self, "_rp"):
-            from ..recursion.compress import RecursionProver
+        """The recursion prover, built once (under a lock: a server's jobs
+        may ask for it together)."""
+        with self._rp_lock:
+            if not hasattr(self, "_rp"):
+                from ..recursion.compress import RecursionProver
 
-            self._rp = RecursionProver(self.machine)
-        return self._rp
+                self._rp = RecursionProver(self.machine)
+            return self._rp
 
     # ------------------------------------------------------------- internals
 

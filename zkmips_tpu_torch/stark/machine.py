@@ -87,6 +87,15 @@ class ProvingKey:
     vk: VerifyingKey
     device: torch.device
 
+    def to(self, device) -> "ProvingKey":
+        """The key on ``device``: every tensor of ``prep_traces`` and
+        ``prep_data`` copied there (tensors already there are shared), the
+        data's ``persistent`` flag kept, the verifying key shared."""
+        device = torch.device(device)
+        prep_data = None if self.prep_data is None else self.prep_data.to(device)
+        traces = {n: t.to(device) for n, t in self.prep_traces.items()}
+        return ProvingKey(prep_data, traces, list(self.prep_order), self.vk, device)
+
 
 @dataclass
 class ChipOpenedValues:

@@ -116,6 +116,17 @@ class ProverData:
     def root(self):
         return self.tree.root
 
+    def to(self, device) -> "ProverData":
+        """A copy on ``device``: the coefficients, the LDEs and the tree's
+        tensor layers (the BN254 tree's host layers are shared)."""
+        def move(t):
+            return t.to(device) if isinstance(t, torch.Tensor) else t
+
+        ldes = [move(m) for m in self.ldes]
+        tree = type(self.tree)(ldes, layers=[move(layer) for layer in self.tree.digest_layers])
+        coeffs = None if self.coeffs is None else [move(c) for c in self.coeffs]
+        return ProverData(list(self.domains), coeffs, ldes, tree, self.log_blowup, self.persistent)
+
 
 def commit(config: FriConfig, domains_and_matrices) -> ProverData:
     """Commit to [(Domain, evals (n, w) Montgomery int32, natural order)]."""
