@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--log-rows K] [--fib-iters N] [--stream-fib-iters N]
                           [--keccak-iters N] [--ladder-fib-iters N]
                           [--only-kernels | --only-full | --only-recursion | --only-snark [--plonk-full]
-                           | --only-sdk {groth16,plonk} | --only-mesh | --only-network | --only-cli]
+                           | --only-sdk {groth16,plonk} | --only-mesh | --only-network | --only-cli
+                           | --only-examples NAME [NAME ...]]
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
@@ -35,7 +36,7 @@
    the batch proofs byte for byte through the port's codec; a small fib
    proved on the card and on the CPU must give equal proofs;
 7. the streaming phase, at full size: the fib guest (``--stream-fib-iters``
-   iterations, default 400,000, about 2,400,000 cycles: three 2^20-cycle
+   iterations, default 200,000, about 1,200,000 cycles: two 2^20-cycle
    shards) streamed from the native executor into ``prove_streaming`` (one
    worker, pooled trace fills) on the card with the 49-chip machine at the
    core config; the proofs are encoded by the port's ``encode_core_proof``
@@ -58,7 +59,8 @@
    against its plain version at the widest leaf shape this prove gave it.
    The kernels' launch counts of the ``kernels`` line are those of this
    prove; each shard's pooled trace fills are printed in thread seconds
-   beside the wall of ``prove.trace_gen``.  Then the six fixture ELFs of ``tests/fixtures/guests`` are
+   beside the wall of ``prove.trace_gen``.  Then (in the whole run, in the
+   side process of step 14) the six fixture ELFs of ``tests/fixtures/guests`` are
    loaded, executed, proved on the card at the core config and verified;
    and a guest that gives every one of the 49 chips rows is proved at the
    test config on the card and on the CPU, and the two proofs must be equal.
@@ -152,7 +154,23 @@
    warmup must fail on exactly the corpus's ``mixed30k`` guest and exit 1
    (ROADMAP.md queue 3: that guest's DIVU is not one the DivRem chip
    proves, in either package);
-14. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
+14. the examples phase: the twelve quick programs of
+   ``zkmips_tpu_torch/examples`` (the counterparts of ``examples/*.py``),
+   each called through its ``main`` at the test config on the card, with
+   the example's own assertions (``real_guest`` on a fixture ELF); each
+   prints a line with its wall, peak device memory, the kernels' launches
+   (counted from 0 for it) and what it returned, and the phase a summary
+   line.  ``fibonacci``'s proof bytes must equal the CPU process's.  In the
+   whole run this phase, with the ELFs and the every-chip guest of step 8,
+   runs in a side process of this script that starts as the ladder's wrap
+   starts (from there the main process is mostly host code: the wrap's
+   BN254 hashing, the SDK phase's SNARK) and is waited for after the SDK
+   phase; its lines are printed then.
+   ``--only-examples NAME ...`` runs the card line, the build and the named
+   examples alone, the ladder's too (``compressed``, ``aggregation``,
+   ``groth16``, ``plonk``, ``sound_ladder`` on a fixture ELF; ``plonk``
+   stops before proving when the host's memory is too small);
+15. prints one JSON line with every kernel's record (``{"kernels": [...]}``,
    with the ladder's launches per stage, the SNARK's, the placed prove's
    and the mesh step's) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -162,8 +180,10 @@ small ladder) run in a
 second process of this script, started after the card line, while the
 card runs its phases; each phase waits for its CPU proof's bytes and
 compares them with the card's, and the process's times are printed before
-the ``kernels`` line.  The process is waited for (or stopped, after an
-``--only-*`` part or a failure) before the script exits.
+the ``kernels`` line; after its first two results it lowers its priority
+(``nice``), so that the card's phases' host work goes first.  The process
+is waited for (or stopped, after an ``--only-*`` part or a failure) before
+the script exits, as is the side process of step 14.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when the package is missing, or when any phase fails.
@@ -543,11 +563,22 @@ class CpuSide:
             stdout=self.log, stderr=subprocess.STDOUT,
         )
 
+    @classmethod
+    def attach(cls, out: str) -> "CpuSide":
+        """A reader of the results of the CPU process that another process
+        of this script started (the side process's view)."""
+        reader = cls.__new__(cls)
+        reader.dir, reader.proc = out, None
+        return reader
+
     def get(self, name: str) -> bytes:
         path = os.path.join(self.dir, f"{name}.bin")
         t0 = time.perf_counter()
         while not os.path.exists(path):
-            if self.proc.poll() is not None and not os.path.exists(path):
+            if self.proc is None:
+                if time.perf_counter() - t0 > 1200:
+                    raise AssertionError(f"the CPU side wrote no {name} in 1,200 s")
+            elif self.proc.poll() is not None and not os.path.exists(path):
                 raise AssertionError(f"the CPU side exited with {self.proc.returncode} before {name}: "
                                      + self._tail())
             time.sleep(0.2)
@@ -597,17 +628,19 @@ def cpu_side(out: str, seed: int):
         os.replace(tmp, os.path.join(out, f"{name}.bin"))
         print(f"cpu side: {name} proved on the CPU in {time.perf_counter() - t0:.3f} s", flush=True)
 
-    for name in MESH_SMALL_CHIPS:  # first, so that --only-mesh waits for nothing else
-        put(f"mesh_{name}", lambda: mesh_small_bytes(name, "cpu"))
     small, small_pv = build_record(8, seed + 1)
     put("small_shard", lambda: small_proof(build_machine(), small, small_pv, "cpu"))
     put("mips_small_fib", lambda: small_fib_bytes("cpu"))
+    os.nice(10)  # the rest is needed minutes later: the card's phases' host work goes first
+    for name in MESH_SMALL_CHIPS:
+        put(f"mesh_{name}", lambda: mesh_small_bytes(name, "cpu"))
     for name in RECURSION_CONFIGS:
         rec, pv = build_record(RECURSION_CPU_LOG_ROWS, seed + 8)
         machine = build_machine(StarkConfig(getattr(FriConfig, name)()))
         put(f"config_{name}", lambda: small_proof(machine, rec, pv, "cpu"))
     put("every_chip", lambda: every_chip_bytes("cpu", None)[0])
     put("ladder_small", lambda: small_ladder_bytes("cpu"))
+    put("example_fibonacci", example_fibonacci_cpu_bytes)
 
 
 def fib_program(n_iters: int):
@@ -1004,8 +1037,8 @@ def stream_phase(args, dev, card: str) -> dict:
     launches = dict(poseidon2_cuda.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     cycles = produced["cycles"]
-    if len(proofs) != produced["records"] or len(proofs) < 3:
-        raise AssertionError(f"stream: {len(proofs)} proofs of {produced['records']} records, not 3 or more")
+    if len(proofs) != produced["records"] or len(proofs) < 2:
+        raise AssertionError(f"stream: {len(proofs)} proofs of {produced['records']} records, not 2 or more")
     print(f"stream fib: {cycles} cycles, {len(proofs)} shards of up to {FULL_SHARD_CYCLES} cycles, "
           f"executor {produced['seconds']:.3f} s, streamed prove wall {wall:.3f} s, "
           f"{cycles / wall:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB, "
@@ -1153,12 +1186,13 @@ def print_recursion_shape(name: str, proof, card: str):
     print(f"ladder {name} chips [padded log-height]: " + json.dumps(heights) + f" [{card}]", flush=True)
 
 
-def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
+def recursion_phase(args, dev, card: str, cpu: CpuSide, beside=None) -> dict:
     """The recursion ladder at full width: the fib guest in 2^20-cycle shards
     proved by the 49-chip machine at the core config, then lift, compress,
     shrink and wrap on the card; each stage checked with
     ``verify_compressed`` and through its bytes.  Returns the launch counts
-    per stage."""
+    per stage.  ``beside`` is called as the wrap starts (its BN254 hashing
+    is host code: the card is idle)."""
     import copy
 
     from zkmips_tpu_torch.executor import execute_for_proving
@@ -1215,6 +1249,8 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     done["shrink"], stages["shrink"] = ladder_stage("shrink", lambda: rp.shrink(done["compress"]), card)
     print_recursion_shape("shrink", done["shrink"].proof, card)
     check("shrink", done["shrink"])
+    if beside is not None:
+        beside()
     done["wrap"], stages["wrap"] = ladder_stage("wrap", lambda: rp.wrap(done["shrink"]), card)
     print_recursion_shape("wrap", done["wrap"].proof, card)
     wrap_bytes = check("wrap", done["wrap"])
@@ -1520,6 +1556,11 @@ def snark_groth16_full(rp, wrapped, core_vk, program, info, card: str):
 PLONK_HOST_BYTES_PER_SLOT = 5000
 
 
+def host_total_bytes() -> int:
+    with open("/proc/meminfo") as fh:
+        return next(int(line.split()[1]) for line in fh if line.startswith("MemTotal:")) * 1024
+
+
 def plonk_prove_bytes(n: int) -> int:
     """Host bytes the packed PLONK setup and prove need for a domain of
     ``n`` gates (``snark/plonk``)."""
@@ -1536,8 +1577,7 @@ def snark_plonk_full(rp, wrapped, core_vk, program, card: str):
     from zkmips_tpu_torch.snark import outer_circuit, plonk
     from zkmips_tpu_torch.utils import logger
 
-    with open("/proc/meminfo") as fh:
-        host_bytes = next(int(line.split()[1]) for line in fh if line.startswith("MemTotal:")) * 1024
+    host_bytes = host_total_bytes()
     reached = {}
 
     def run():
@@ -2122,11 +2162,160 @@ def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
             serve.wait(timeout=60)
 
 
-def full_phase(args, dev, card: str, cpu: CpuSide) -> dict:
-    launches = keccak_phase(args, dev, card)
+# --- the repository's programs: zkmips_tpu_torch/examples ----------------------------
+
+QUICK_EXAMPLES = ("fibonacci", "io", "is_prime", "large_sum", "sha256_precompile", "keccak_precompile",
+                  "poseidon2_precompile", "uint256_mul", "cycle_tracking", "unconstrained", "elf_build",
+                  "real_guest")
+EXAMPLES = QUICK_EXAMPLES + ("compressed", "aggregation", "groth16", "plonk", "sound_ladder")
+EXAMPLE_ARGV = {  # real_guest's and the sound ladder's compiled guests: fixtures of the tests
+    "real_guest": ["--elf", os.path.join(FIXTURES, "memory_sweep.elf")],
+    "sound_ladder": ["--elf", os.path.join(FIXTURES, "sha256_chain.elf")],
+}
+# the test config's outer circuit has 8,730,955 PLONK gates: a 2^24 domain
+SDK_PLONK_DOMAIN = 1 << 24
+
+
+def _printable(value):
+    """What an example returned, without its proof objects."""
+    if isinstance(value, dict):
+        return {str(k): _printable(v) for k, v in value.items() if k not in ("proof", "vk")}
+    if isinstance(value, (list, tuple)):
+        return [_printable(v) for v in value]
+    if isinstance(value, bytes):
+        return value.hex()
+    return value if isinstance(value, (int, float, str, bool, type(None))) else repr(value)
+
+
+def run_example(name: str, card: str) -> dict:
+    """One program of ``zkmips_tpu_torch/examples`` on the card through its
+    ``main`` (its own assertions hold or it raises); prints its wall, peak
+    device memory, the kernels' launches from 0 and what it returned."""
+    import importlib
+
+    from zkmips_tpu_torch.ops import poseidon2_cuda
+
+    argv = [os.path.join(ROOT, a) if a.startswith(FIXTURES) else a for a in EXAMPLE_ARGV.get(name, [])]
+    if name == "plonk":
+        host = host_total_bytes()
+        if plonk_prove_bytes(SDK_PLONK_DOMAIN) > 0.8 * host:
+            print(f"example plonk: not run: the packed prover needs about "
+                  f"{plonk_prove_bytes(SDK_PLONK_DOMAIN) / 2**30:.0f} GiB at 2^24 gates, the host has "
+                  f"{host / 2**30:.0f} GiB [{card}]", flush=True)
+            return {}
+    mod = importlib.import_module(f"zkmips_tpu_torch.examples.{name}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon2_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(poseidon2_cuda.LAUNCHES)
+    if name != "cycle_tracking" and not all(launches.values()):  # cycle_tracking only executes
+        raise AssertionError(f"example {name}: a kernel was not launched: {launches}")
+    if name == "real_guest" and not out.get("present"):
+        raise AssertionError("example real_guest: the fixture ELF was not found")
+    print(f"example {name}: " + json.dumps({
+        "card": card, "wall_seconds": round(wall, 4), "launches": launches,
+        "peak_device_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "returned": _printable(out)}), flush=True)
+    return {"wall": wall, "launches": launches, "out": out}
+
+
+def example_fibonacci_cpu_bytes() -> bytes:
+    """The ``fibonacci`` example's proof bytes from its ``--cpu`` run; the
+    card's come from the examples phase."""
+    from zkmips_tpu_torch.examples import fibonacci
+
+    return fibonacci.main(["--cpu"])["proof"].to_bytes()
+
+
+def run_examples(names, card: str, fib_bytes_out: str | None = None):
+    """``--only-examples``: each named program in turn through
+    ``run_example``, then a summary line; with ``fib_bytes_out`` (the
+    examples phase of the whole run) ``fibonacci``'s proof bytes are
+    written there for the card = CPU check."""
+    t0 = time.perf_counter()
+    runs = {name: run_example(name, card) for name in names}
+    wall = time.perf_counter() - t0
+    total = {}
+    for r in runs.values():
+        for k, v in r.get("launches", {}).items():
+            total[k] = total.get(k, 0) + v
+    if fib_bytes_out:
+        tmp = fib_bytes_out + ".tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(runs["fibonacci"]["out"]["proof"].to_bytes())
+        os.replace(tmp, fib_bytes_out)
+    print(f"examples: {len(runs)} programs passed their own checks in {wall:.1f} s, launches {total} "
+          f"[{card}]", flush=True)
+
+
+class SideProcess:
+    """The phases of the whole run whose launches the kernels line does not
+    read: the six fixture ELFs, the every-chip guest (card = CPU) and the
+    examples phase (the twelve quick programs, each called through its
+    ``main``, its launches its own counts from 0), in a third process of
+    this script (``--side DIR``).  It starts as the ladder's wrap starts:
+    from there the main process is mostly host code (the wrap's BN254
+    hashing, the SDK phase's SNARK) and the card idle; it is waited for
+    after the SDK phase.  Then ``fibonacci``'s proof bytes against the CPU
+    process's."""
+
+    def __init__(self, cpu: CpuSide):
+        self.cpu = cpu
+        self.proc = None
+        self.log_path = os.path.join(cpu.dir, "side.log")
+
+    def start(self):
+        if self.proc is None:
+            self.t0 = time.perf_counter()
+            self.log = open(self.log_path, "w")
+            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", self.cpu.dir],
+                                         stdout=self.log, stderr=subprocess.STDOUT)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, card: str):
+        if self.proc is None:
+            raise AssertionError("the ladder ended without starting the side process")
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=900)
+        finally:
+            self.stop()
+            self.log.close()
+        with open(self.log_path) as fh:
+            lines = fh.read().splitlines()
+        for line in lines[1:]:  # its first line is the card's, then the build's as above
+            if not line.startswith(("build:", "ptxas:", "sass:")):
+                print(line, flush=True)
+        if rc != 0:
+            raise AssertionError(f"the side process exited with {rc}")
+        with open(side_fib_path(self.cpu.dir), "rb") as fh:
+            if fh.read() != self.cpu.get("example_fibonacci"):
+                raise AssertionError("examples: fibonacci's proof on the card differs from the CPU's")
+        print(f"side process: wall {time.perf_counter() - self.t0:.1f} s beside the wrap and the SDK phase, "
+              f"waited {time.perf_counter() - t0:.1f} s after them; examples: fibonacci's proof bytes equal "
+              f"on card and CPU [{card}]", flush=True)
+
+
+def side_fib_path(out: str) -> str:
+    return os.path.join(out, "example_fibonacci_card.bin")
+
+
+def side_phases(out: str, dev, card: str):
+    """``--side DIR``: what ``SideProcess`` runs, each part's wall printed."""
+    clock = PhaseClock(time.perf_counter())
     elf_phase(dev, card)
-    every_chip_phase(dev, card, cpu)
-    return launches
+    every_chip_phase(dev, card, CpuSide.attach(out))
+    clock.done("full machine: the ELFs and the every-chip guest (side process)")
+    run_examples(QUICK_EXAMPLES, card, side_fib_path(out))
+    clock.done("examples (side process)")
 
 
 def main() -> int:
@@ -2136,7 +2325,7 @@ def main() -> int:
                     help="log2 rows of the synthetic shard's Cpu/AddSub-shaped chips")
     ap.add_argument("--fib-iters", type=int, default=60_000,
                     help="iterations of the fib phase's guest (6 cycles each)")
-    ap.add_argument("--stream-fib-iters", type=int, default=400_000,
+    ap.add_argument("--stream-fib-iters", type=int, default=200_000,
                     help="iterations of the streaming phase's fib guest (6 cycles each)")
     ap.add_argument("--keccak-iters", type=int, default=1365,
                     help="iterations of the full-machine phase's keccak-chain guest (24 KeccakSponge rows each)")
@@ -2161,7 +2350,11 @@ def main() -> int:
     only.add_argument("--only-cli", action="store_true",
                       help="run the CLI phase alone, with warmup --quick (exit code 0, no kernels line, "
                            "no last line)")
+    only.add_argument("--only-examples", nargs="+", metavar="NAME", choices=EXAMPLES,
+                      help="run these programs of zkmips_tpu_torch/examples alone (exit code 0, no kernels "
+                           "line, no last line)")
     only.add_argument("--cpu-side", metavar="DIR", help=argparse.SUPPRESS)  # the second process
+    only.add_argument("--side", metavar="DIR", help=argparse.SUPPRESS)  # the side process (SideProcess)
     only.add_argument("--network-client", nargs=3, metavar=("DIR", "CORE_URL", "TEST_URL"),
                       help=argparse.SUPPRESS)  # the network phase's client process, without a GPU
     ap.add_argument("--plonk-full", action="store_true",
@@ -2188,7 +2381,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     cpu = None if args.only_kernels or args.only_snark or args.only_sdk or args.only_network \
-        or args.only_cli else CpuSide(args)
+        or args.only_cli or args.only_examples or args.side else CpuSide(args)
     finished = False
     try:
         finished = run_phases(args, dev, rng, card, cpu)
@@ -2233,7 +2426,12 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     print("sass: " + (json.dumps(sass) if sass else "cuobjdump not found, instructions not counted"), flush=True)
 
     if args.only_full:
-        full_phase(args, dev, card, cpu)
+        keccak_phase(args, dev, card)
+        elf_phase(dev, card)
+        every_chip_phase(dev, card, cpu)
+        return False
+    if args.side:
+        side_phases(args.side, dev, card)
         return False
     if args.only_recursion or args.only_snark:
         recursion_phase(args, dev, card, cpu)
@@ -2249,6 +2447,9 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
         return False
     if args.only_cli:
         cli_phase(card, synthetic_gnark_vk(), True, dict(os.environ))
+        return False
+    if args.only_examples:
+        run_examples(args.only_examples, card)
         return False
 
     machine = build_machine()
@@ -2323,19 +2524,25 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     stream_keccak_phase(dev, card)
     recursion_configs_phase(args, dev, card, cpu)
     clock.done("streaming")
-    for name, n in full_phase(args, dev, card, cpu).items():
+    for name, n in keccak_phase(args, dev, card).items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the keccak path")
         records[name]["launches"] = n
-    clock.done("full machine")
-    ladder = recursion_phase(args, dev, card, cpu)
-    clock.done("recursion")
-    for name in records:
-        records[name]["ladder_launches"] = {stage: ladder[stage][name] for stage in LADDER_STAGES}
-        if sum(records[name]["ladder_launches"].values()) == 0:
-            raise AssertionError(f"kernel {name} was not launched on the recursion ladder")
-    snark, gnark = sdk_phase("groth16", card)
-    clock.done("sdk groth16")
+    clock.done("full machine: the keccak chain (the ELFs and the every-chip guest in the side process)")
+    side = SideProcess(cpu)
+    try:
+        ladder = recursion_phase(args, dev, card, cpu, beside=side.start)
+        clock.done("recursion (the side process started with the wrap)")
+        for name in records:
+            records[name]["ladder_launches"] = {stage: ladder[stage][name] for stage in LADDER_STAGES}
+            if sum(records[name]["ladder_launches"].values()) == 0:
+                raise AssertionError(f"kernel {name} was not launched on the recursion ladder")
+        snark, gnark = sdk_phase("groth16", card)
+        clock.done("sdk groth16")
+        side.finish(card)
+    finally:
+        side.stop()
+    clock.done("side process (what was left of it after the SDK phase)")
     for name in records:
         records[name]["snark_launches"] = snark.get(name, 0)
         records[name]["placement_launches"] = ladder["placement"][name]

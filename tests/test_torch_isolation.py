@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
-@pytest.mark.parametrize("sub", ["verifier", "guest", "recursion", "snark", "sdk", "parallel"])
+@pytest.mark.parametrize("sub", ["verifier", "guest", "recursion", "snark", "sdk", "parallel", "examples"])
 def test_new_subpackages_are_covered(sub):
     files = [p for p in _port_files() if p.parent.name == sub]
     assert len(files) >= 2

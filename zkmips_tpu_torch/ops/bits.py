@@ -40,3 +40,23 @@ def bitrev_rows(x: torch.Tensor) -> torch.Tensor:
 def sum_mod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Field sum along ``dim`` (exact in int64 for up to 2^32 terms)."""
     return f.narrow(x.to(torch.int64).sum(dim) % f.P)
+
+
+def powers_canonical_np(base: int, n: int) -> np.ndarray:
+    """[1, b, ..., b^(n-1)] canonical, uint64 numpy (host precompute)."""
+    out = np.ones(1, dtype=np.uint64)
+    cur = base % f.P
+    while out.shape[0] < n:
+        out = np.concatenate([out, (out * cur) % f.P])
+        cur = cur * cur % f.P
+    return out[:n]
+
+
+def powers_monty_np(base: int, n: int) -> np.ndarray:
+    """[1, b, ..., b^(n-1)] in Montgomery form, uint32 numpy."""
+    return ((powers_canonical_np(base, n) << np.uint64(32)) % f.P).astype(np.uint32)
+
+
+def powers_monty(base: int, n: int, device="cpu") -> torch.Tensor:
+    """[1, b, ..., b^(n-1)] in Montgomery form, int32 on ``device``."""
+    return f.batch_powers(base, n, device)

@@ -13,6 +13,7 @@ import torch
 from . import field as f
 
 W = 3  # X^4 = 3
+D = 4
 
 _U1 = pow(W, (f.P - 1) // 4, f.P)
 # Montgomery Frobenius scale factors u^(i*k) for frob^k, i in 0..3
@@ -34,6 +35,14 @@ def zero(device="cpu") -> torch.Tensor:
     return scalar(0, device=device)
 
 
+ONE = one()
+ZERO = zero()
+
+
+def zeros_like(a) -> torch.Tensor:
+    return torch.zeros_like(torch.as_tensor(a))
+
+
 def from_base(x) -> torch.Tensor:
     """(...,) base -> (..., 4) ext."""
     x = torch.as_tensor(x, dtype=torch.int32)
@@ -47,6 +56,10 @@ def add(a, b) -> torch.Tensor:
 
 def sub(a, b) -> torch.Tensor:
     return f.sub(a, b)
+
+
+def neg(a) -> torch.Tensor:
+    return f.neg(a)
 
 
 # The schoolbook product's 16 terms a_i * b_j (flattened as 4 i + j) go to
@@ -127,3 +140,8 @@ def powers(base, n: int) -> torch.Tensor:
         out = torch.cat([out, mul(out, cur)], dim=0)
         cur = mul(cur, cur)
     return out[:n]
+
+
+def powers_host(base, n: int) -> torch.Tensor:
+    """(n, 4) CPU tensor [1, base, ..., base^(n-1)]."""
+    return powers(torch.as_tensor(base, dtype=torch.int32).cpu(), n)

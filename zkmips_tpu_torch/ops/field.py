@@ -26,6 +26,7 @@ MONTY_MU = 0x81000001  # P^{-1} mod 2^32
 R2 = 0x17F7EFE4  # (2^32)^2 mod P
 R_INV = pow(1 << 32, P - 2, P)  # (2^32)^-1 mod P
 MONTY_ONE = 0x01FFFFFE  # 2^32 mod P
+MONTY_BITS = 32
 GENERATOR = 3
 TWO_ADICITY = 24
 
@@ -43,6 +44,10 @@ def from_monty_int(m: int) -> int:
     return (m * pow(1 << 32, P - 2, P)) % P
 
 
+def exp_int(base: int, e: int) -> int:
+    return pow(base, e, P)
+
+
 def inv_int(x: int) -> int:
     return pow(x, P - 2, P)
 
@@ -54,7 +59,9 @@ def two_adic_generator_int(bits: int) -> int:
 
 
 ONE = MONTY_ONE
+ZERO = 0
 TWO = to_monty_int(2)
+NEG_ONE = to_monty_int(P - 1)
 HALF = to_monty_int((P + 1) // 2)
 
 
@@ -131,6 +138,11 @@ def from_monty(m) -> torch.Tensor:
 def to_monty(x) -> torch.Tensor:
     """Canonical (< p) -> Montgomery."""
     return mul(x, R2)
+
+
+def from_u32(x):
+    """Raw u32 machine words, each already below p, as field elements."""
+    return to_monty(x)
 
 
 def pow_const(a, e: int) -> torch.Tensor:

@@ -56,6 +56,11 @@ class MerkleTree:
     def root(self) -> torch.Tensor:
         return self.digest_layers[-1][0].cpu()
 
+    def open(self, index: int):
+        """Open row ``index``: (opened rows per matrix, siblings (L, 8))."""
+        rows, sibs = self.open_many([index])
+        return [r[0] for r in rows], sibs[0]
+
     def open_many(self, indices):
         """Batched openings: ([per-matrix (Q, w)], (Q, L, 8)), CPU tensors."""
         idx = torch.as_tensor(indices, dtype=torch.int64)
@@ -70,6 +75,17 @@ class MerkleTree:
             return rows, torch.zeros((len(idx), 0, DIGEST_SIZE), dtype=torch.int32)
         sibs = [self.digest_layers[k][(idx_d >> k) ^ 1] for k in range(log_max)]
         return rows, torch.stack(sibs, dim=1).cpu()
+
+
+def open_many_multi(trees: list, indices_list: list) -> list:
+    """[(rows per matrix, siblings)] of several trees, each at its own indices."""
+    return [t.open_many(i) for t, i in zip(trees, indices_list)]
+
+
+def verify_opening(root, index: int, dims: list, opened_rows: list, siblings) -> bool:
+    """One row's opening against ``root``; dims: (height, width) per matrix."""
+    rows = [torch.as_tensor(r, dtype=torch.int32)[None] for r in opened_rows]
+    return bool(verify_openings(root, [index], dims, rows, torch.as_tensor(siblings, dtype=torch.int32)[None])[0])
 
 
 def verify_openings(root, indices, dims, rows_per_matrix, siblings) -> torch.Tensor:

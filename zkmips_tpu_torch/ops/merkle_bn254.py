@@ -86,6 +86,10 @@ class MerkleTree:
         """(1,) object array."""
         return to_objects(self.digest_layers[-1][0:1])[0]
 
+    def open(self, index: int):
+        rows, sibs = self.open_many([index])
+        return [r[0] for r in rows], sibs[0]
+
     def open_many(self, indices):
         """([per-matrix (Q, w) Montgomery int32 CPU tensors], (Q, L, 1) object)."""
         idx = torch.as_tensor(indices, dtype=torch.int64)

@@ -12,6 +12,7 @@ the same transform's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import bits, field as f
@@ -81,3 +82,11 @@ def extend_coeffs(coeffs: torch.Tensor, shift: int, log_blowup: int) -> torch.Te
     padded[:n] = scaled
     del scaled
     return ntt(padded)
+
+
+def domain_points_np(log_n: int, shift: int = 1) -> np.ndarray:
+    """Canonical uint32 numpy array of the domain points shift * g^i (natural order)."""
+    pts = bits.powers_canonical_np(f.two_adic_generator_int(log_n), 1 << log_n)
+    if shift != 1:
+        pts = (pts * (shift % f.P)) % f.P
+    return pts.astype(np.uint32)

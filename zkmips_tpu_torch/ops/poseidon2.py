@@ -26,6 +26,7 @@ from ._poseidon2_rc import RC_16_30
 WIDTH = 16
 RATE = 8
 OUT = 8
+ROUNDS_F = 8
 ROUNDS_P = 13
 
 _RC = [[f.to_monty_int(c) for c in row] for row in RC_16_30]

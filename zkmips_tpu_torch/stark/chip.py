@@ -37,6 +37,9 @@ class BaseAir:
     def included(self, record) -> bool:
         return True
 
+    def num_rows(self, record) -> int:
+        raise NotImplementedError
+
 
 class Chip:
     def __init__(self, a: BaseAir, num_public_values: int = 0, batch_size: int = permutation.BATCH_SIZE):

@@ -28,6 +28,9 @@ class Domain:
     def gen(self) -> int:
         return f.two_adic_generator_int(self.log_n)
 
+    def first_point_ext(self) -> torch.Tensor:
+        return ext4.scalar(self.shift)
+
     def next_point_ext(self, z: torch.Tensor) -> torch.Tensor:
         """z * w: the 'next row' opening point."""
         return ext4.mul_base(z, f.to_monty_int(self.gen))
@@ -66,6 +69,10 @@ class Domain:
             Domain(self.log_n - log_chunks, self.shift * pow(w, i, f.P) % f.P)
             for i in range(num_chunks)
         ]
+
+    def points_natural(self, device="cpu") -> torch.Tensor:
+        """Canonical int32 points shift * w^i in natural order."""
+        return f.from_monty(f.mul(f.batch_powers(self.gen, self.size, device), f.to_monty_int(self.shift % f.P)))
 
 
 def lde_points_bitrev_monty(log_n: int, device="cpu") -> torch.Tensor:

@@ -151,6 +151,11 @@ def eval_at_ext_point(coeffs: torch.Tensor, dom: Domain, z: torch.Tensor) -> tor
     return torch.stack(out, dim=-1).cpu()
 
 
+def eval_at_ext_points(coeffs: torch.Tensor, dom: Domain, pts) -> list:
+    """Every column polynomial at each ext point: a list of (w, 4) CPU tensors."""
+    return [eval_at_ext_point(coeffs, dom, z) for z in pts]
+
+
 # ---------------------------------------------------------------------------
 # Proof structures
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ circular slice ``step`` rows further on.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import field as f, ntt
@@ -38,6 +39,23 @@ def coset_selectors(log_h: int, lqd: int, device) -> dict:
         Selector.TRANSITION: x_min_last,
         "inv_zeroifier": f.inv(zh),
     }
+
+
+# The reference's device-side twin of ``coset_selectors``; here that one
+# already runs on the device it is given.
+coset_selectors_dev = coset_selectors
+
+
+def pow_mod_vec(x: np.ndarray, e: int) -> np.ndarray:
+    """x ** e mod p for uint64 canonical numpy arrays (square-and-multiply)."""
+    r = np.ones_like(x)
+    b = x % f.P
+    while e:
+        if e & 1:
+            r = r * b % f.P
+        b = b * b % f.P
+        e >>= 1
+    return r
 
 
 def lde_onto_quotient_domain(trace, log_h: int, lqd: int, coeffs=None) -> torch.Tensor:
