@@ -128,6 +128,10 @@
    card, shard by shard, a replay whose Merkle trees are hashed by the
    plain torch Poseidon2 (no kernel launched), so that K1 and K2 at the
    step's own shapes are held against their plain versions;
+   the replay's openings at zeta of the main, LogUp and quotient matrices
+   must pass the verifier's constraint check (``_verify_chip_constraints``,
+   which shares no code with the LogUp trace or the quotient), and a
+   flipped LogUp opening and a flipped quotient opening must fail it;
    ``septic_identity_host`` must accept the gathered
    digests and reject a tampered word; K1 and K2 must be launched; each
    part's seconds, peak memory and launches are printed.  At 64-cycle
@@ -149,11 +153,11 @@
    client's proof and of it with one flipped byte (exit code 1), ``prove
    --config test --mode compressed``, ``serve`` with ``prove --endpoint``,
    and ``solidity-verifier`` on the SDK phase's gnark vk bytes (the source
-   must be the one rendered in this process).  ``--only-cli`` runs it alone with
-   ``warmup --quick`` beside it and a vk made of fixed curve points; the
-   warmup must fail on exactly the corpus's ``mixed30k`` guest and exit 1
-   (ROADMAP.md queue 3: that guest's DIVU is not one the DivRem chip
-   proves, in either package);
+   must be the one rendered in this process), and ``warmup --quick``
+   (started, at ``nice`` 10, as the mesh phase starts): every guest of the
+   shape corpus proved and verified on the card, exit code 0, each guest's
+   seconds and shards on a ``cli warmup:`` line.  ``--only-cli`` runs it
+   alone with a vk made of fixed curve points;
 14. the examples phase: the twelve quick programs of
    ``zkmips_tpu_torch/examples`` (the counterparts of ``examples/*.py``),
    each called through its ``main`` at the test config on the card, with
@@ -195,6 +199,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1709,7 +1714,6 @@ MESH_SMALL_CHIPS = ("Branch", "Cpu")
 NET_FIB_ITERS = 40_000  # the network phase's core-config fib: two 2^17-cycle shards
 NET_SHARD = 1 << 17
 CLI_ELF = "memory_sweep.elf"  # the CLI phase's fixture guest (393 cycles)
-WARMUP_KNOWN_FAILURE = "mixed30k"  # ROADMAP.md queue 3: its DIVU is not one the DivRem chip proves
 
 
 def mesh_grid(kind: str) -> list:
@@ -1772,17 +1776,58 @@ def mesh_small_bytes(chip_name: str, kind: str) -> bytes:
     return b"".join(convert.to_numpy(out[k]).tobytes() for k in sorted(out))
 
 
+def mesh_zeta_check(chip, replays, pvs) -> float:
+    """The verifier's constraint check at zeta (``_verify_chip_constraints``,
+    the DAG on Python ints) over each shard's replay openings of the main,
+    LogUp and quotient matrices: every shard accepted, and shard 1 with one
+    ext element of its LogUp opening, or of its first quotient chunk's,
+    moved by one rejected.  It shares no code with ``permutation`` or
+    ``quotient``, so it holds both at full width.  Returns its seconds."""
+    import dataclasses
+
+    from zkmips_tpu_torch import convert
+    from zkmips_tpu_torch.ops import ext4, field as f
+    from zkmips_tpu_torch.stark.machine import VerificationError, _verify_chip_constraints
+
+    t0 = time.perf_counter()
+
+    def check(i, ov):
+        c = replays[i][1]
+        _verify_chip_constraints(chip, ov, c["zeta"], c["alpha_q"], [c["alpha"], c["beta"]],
+                                 f.to_monty(convert.to_torch(pvs[i]).reshape(-1)))
+
+    for i, (ov, _c) in enumerate(replays):
+        check(i, ov)
+    ov = replays[1][0]
+    perm = ov.perm_local.clone()
+    perm[0] = ext4.add(perm[0], ext4.one())
+    quot = [q.clone() for q in ov.quotient]
+    quot[0][0] = ext4.add(quot[0][0], ext4.one())
+    for what, bad in (("LogUp", dataclasses.replace(ov, perm_local=perm)),
+                      ("quotient", dataclasses.replace(ov, quotient=quot))):
+        try:
+            check(1, bad)
+        except VerificationError:
+            continue
+        raise AssertionError(f"mesh: the check at zeta accepted a flipped {what} opening")
+    return time.perf_counter() - t0
+
+
 def mesh_phase(args, dev, card: str, cpu) -> dict:
     """The mesh step at full width: the fib guest's Cpu-chip traces in four
     2^20-row shards over a 4 x 2 grid of the visible cards, held shard by
     shard against the port's ``host_stage_reference`` on the card, whose
     trees the plain Poseidon2 hashes (K1 and K2 at the step's commit and
-    fold shapes against their plain versions); the septic identity on the gathered digests, a tampered word rejected; K1 at
+    fold shapes against their plain versions); the replay's openings at zeta
+    through the verifier's constraint check (``mesh_zeta_check``: the LogUp
+    trace and the quotient held by code they share nothing with); the septic
+    identity on the gathered digests, a tampered word rejected; K1 at
     the step's widest leaf against its plain version; then the card's step
     against the CPU's at 64-cycle shards (Branch and Cpu chips).  Returns
     the kernels' launches over the step."""
     from zkmips_tpu_torch.ops import field as f, poseidon2_cuda
     from zkmips_tpu_torch.parallel import kernels as mk
+    from zkmips_tpu_torch.utils import logger
 
     if cpu is None:
         raise AssertionError("mesh: the CPU side is needed for the card = CPU check")
@@ -1813,14 +1858,23 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
     keys = (("main_roots", "main_root"), ("perm_roots", "perm_root"), ("quotient_roots", "quotient_root"),
             ("fold_roots", "fold_roots"), ("final_polys", "final_poly"), ("cum_sums", "cum_sum"),
             ("states", "state"))
-    for i in range(s):
-        ref = mk.host_stage_reference(chip, traces[i].to(dev), pvs[i])
-        for key, ref_key in keys:
-            if not torch.equal(out[key][i].cpu(), ref[ref_key].cpu()):
-                raise AssertionError(f"mesh: {key} of shard {i} differs from the plain host replay")
+    logger.spans_reset()
+    logger.configure(enabled=True, sync=True, echo=False)
+    replays = []
+    try:
+        for i in range(s):
+            ref = mk.host_stage_reference(chip, traces[i].to(dev), pvs[i])
+            for key, ref_key in keys:
+                if not torch.equal(out[key][i].cpu(), ref[ref_key].cpu()):
+                    raise AssertionError(f"mesh: {key} of shard {i} differs from the plain host replay")
+            replays.append((ref["opened"], ref["challenges"]))
+    finally:
+        logger.configure(enabled=False)
     replay_s = time.perf_counter() - t0
+    openings_s = logger.spans_report()["replay.openings"][0]
     if any(poseidon2_cuda.LAUNCHES.values()):
         raise AssertionError(f"mesh: the plain host replay launched kernels: {dict(poseidon2_cuda.LAUNCHES)}")
+    zeta_s = mesh_zeta_check(chip, replays, pvs)
     if not mk.septic_identity_host(out["all_digests"]):
         raise AssertionError("mesh: the septic identity rejected the gathered digests")
     bad = out["all_digests"].clone()
@@ -1830,12 +1884,14 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
     print("mesh step: " + json.dumps({
         "card": card, "guest_cycles": info["global_clk"], "chip": "Cpu", "shards": s, "rows": h, "width": w,
         "mesh": list(MESH_SHAPE), "devices": sorted({str(d) for row in grid for d in row}),
-        "seconds": {"traces": round(traces_s, 4), "step": round(step_s, 4), "host_replay": round(replay_s, 4)},
+        "seconds": {"traces": round(traces_s, 4), "step": round(step_s, 4), "host_replay": round(replay_s, 4),
+                    "zeta_openings": round(openings_s, 4), "zeta_check": round(zeta_s, 4)},
         "peak_gib": round(peak, 3), "launches": launches, "fold_layers": int(out["fold_roots"].shape[1]),
     }), flush=True)
     print("mesh: every output equals the plain host replay shard by shard (its trees hashed by the plain "
-          "torch Poseidon2, no kernel launched); the septic identity accepted the gathered digests and "
-          "rejected a tampered word", flush=True)
+          "torch Poseidon2, no kernel launched); the verifier's constraint check at zeta accepted the four "
+          "shards' openings and rejected a flipped LogUp opening and a flipped quotient opening; the septic "
+          "identity accepted the gathered digests and rejected a tampered word", flush=True)
     widest_leaf_check("the mesh step's", shapes, args.seed + 10, dev, card)
     for name in MESH_SMALL_CHIPS:
         t0 = time.perf_counter()
@@ -2043,16 +2099,41 @@ def synthetic_gnark_vk() -> tuple:
     return vk_b, solidity.render_groth16_verifier(vk_b)
 
 
-def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
+def warmup_check(out: str, card: str):
+    """``warmup --quick``'s output: no guest ``FAILED``, one ``warm`` line
+    for each of the guests its last line counts; prints each guest's
+    seconds and shards on one line."""
+    if ": FAILED" in out:
+        raise AssertionError(f"cli warmup --quick: a guest failed: {out[-3000:]}")
+    guests = {m[1]: {"seconds": float(m[2]), "shards": int(m[3])}
+              for m in re.finditer(r"^warm (\S+): ([0-9.]+)s \((\d+) shards\)$", out, re.M)}
+    last = re.search(r"^warmup: (\d+) guests proved and verified$", out, re.M)
+    if last is None or int(last[1]) != len(guests) or not guests:
+        raise AssertionError(f"cli warmup --quick: not every guest was reported: {out[-3000:]}")
+    print("cli warmup: " + json.dumps({"card": card, "guests": guests}), flush=True)
+
+
+def start_warmup(env: dict):
+    """``python3 -m zkmips_tpu_torch.cli warmup --quick`` (environment
+    ``env``) in a subprocess at ``nice`` 10, so that it can run beside the
+    card's timed phases; returns its start time and the process, for
+    ``cli_phase``."""
+    return time.perf_counter(), subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m", "zkmips_tpu_torch.cli", "warmup", "--quick"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_phase(card: str, gnark: tuple, env: dict, warmup=None):
     """Subprocesses of ``python3 -m zkmips_tpu_torch.cli`` (environment
     ``env``) on the card, all at once: execute, vkey, prove (core config:
     the bytes of the client's proof in this process), prove --config test
     --mode compressed (its container decoded here), verify of this process's
     proof and of it with a flipped byte (exit 1), serve with prove
     --endpoint (the served proof verified here), and solidity-verifier on
-    ``gnark``'s vk bytes (the source rendered in this process).  With
-    ``warmup``, ``warmup --quick`` runs beside them and must fail on exactly
-    the corpus's ``mixed30k`` guest."""
+    ``gnark``'s vk bytes (the source rendered in this process); beside
+    them ``warmup --quick`` (``warmup``, from ``start_warmup``, or started
+    here): exit code 0, every corpus guest proved and verified
+    (``warmup_check``)."""
     from zkmips_tpu_torch.executor import Program
     from zkmips_tpu_torch.sdk import ProofWithPublicValues, ProverClient
     from zkmips_tpu_torch.stark.machine import StarkConfig
@@ -2062,7 +2143,7 @@ def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
     os.makedirs(d)
     elf = os.path.join(ROOT, FIXTURES, CLI_ELF)
     path = {k: os.path.join(d, f"{k}.bin") for k in ("mine", "bad", "core", "compressed", "net")}
-    procs = {}
+    procs = {"warmup --quick": warmup or start_warmup(env)}
 
     def start(name, *argv):
         procs[name] = (time.perf_counter(), subprocess.Popen(
@@ -2084,8 +2165,6 @@ def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
         serve = subprocess.Popen([sys.executable, "-m", "zkmips_tpu_torch.cli", "serve", "--port", "0",
                                   "--config", "test"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
-        if warmup:
-            start("warmup --quick", "warmup", "--quick")
         start("execute", "execute", elf)
         start("vkey", "vkey", elf)
         start("prove", "prove", elf, "-o", path["core"])
@@ -2143,15 +2222,7 @@ def cli_phase(card: str, gnark: tuple, warmup: bool, env: dict):
         with open(os.path.join(d, "ZKMVerifier.sol")) as fh:
             if fh.read() != gnark[1]:
                 raise AssertionError("cli solidity-verifier: the source is not the one rendered in-process")
-        if warmup:
-            # the corpus's mixed30k guest (a copy of the reference's) encodes DIVU with rd = $t7;
-            # the DivRem chip models rd = 32 (HI/LO), so its LogUp sums do not balance in either
-            # package: warmup must report exactly that guest and exit 1
-            out = finish("warmup --quick", rc=1)
-            failed = [ln for ln in out.splitlines() if ": FAILED" in ln]
-            if len(failed) != 1 or not failed[0].startswith(f"warm {WARMUP_KNOWN_FAILURE}: FAILED") \
-                    or "local cumulative sums do not balance" not in failed[0]:
-                raise AssertionError(f"cli warmup --quick: unexpected failures {failed}")
+        warmup_check(finish("warmup --quick"), card)
         print(f"cli: every subcommand passed in {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     finally:
         for _t0, p in procs.values():
@@ -2446,7 +2517,7 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
         network_phase(card)
         return False
     if args.only_cli:
-        cli_phase(card, synthetic_gnark_vk(), True, dict(os.environ))
+        cli_phase(card, synthetic_gnark_vk(), dict(os.environ))
         return False
     if args.only_examples:
         run_examples(args.only_examples, card)
@@ -2546,17 +2617,24 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     for name in records:
         records[name]["snark_launches"] = snark.get(name, 0)
         records[name]["placement_launches"] = ladder["placement"][name]
-    mesh = mesh_phase(args, dev, card, cpu)
-    clock.done("mesh")
-    for name in records:
-        records[name]["mesh_launches"] = mesh[name]
-    # the CLI's processes run beside the network phase: neither reads the launch counts
+    # the CLI's warmup runs from here, the CLI's other processes beside the network phase:
+    # none of them reads the launch counts
     from zkmips_tpu_torch.utils.pool import make_pool
 
-    with make_pool(1) as pool:
-        cli = pool.submit(cli_phase, card, gnark, False, dict(os.environ))
-        network_phase(card)
-        cli.result()
+    warmup = start_warmup(dict(os.environ))
+    try:
+        mesh = mesh_phase(args, dev, card, cpu)
+        clock.done("mesh (the CLI's warmup beside it)")
+        for name in records:
+            records[name]["mesh_launches"] = mesh[name]
+        with make_pool(1) as pool:
+            cli = pool.submit(cli_phase, card, gnark, dict(os.environ), warmup)
+            network_phase(card)
+            cli.result()
+    finally:
+        if warmup[1].poll() is None:
+            warmup[1].kill()
+        warmup[1].wait()
     clock.done("network and cli")
     cpu.close(True)
     print_kernels(records)

@@ -106,3 +106,4 @@ def test_warmup_exits_1_when_a_guest_fails(capsys, monkeypatch):
     assert "warm bad: FAILED" in out and "warm good:" in out and "1 of 2 guests failed: bad" in out
     monkeypatch.setattr(shape_gen, "corpus_programs", lambda: [("good", good)])
     assert cli.main(["warmup", "--config", "test", "--device", "cpu", "--quick"]) == 0
+    assert "warmup: 1 guests proved and verified" in capsys.readouterr().out

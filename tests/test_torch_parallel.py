@@ -10,9 +10,12 @@ values), padded to an even width as ``tests/test_multichip.py`` pads them.
 The reference's XLA step compiles for the better part of an hour on the Cpu
 chip, so its numpy ``host_stage_reference`` is what the port's step is held
 to, on the Branch chip and the Cpu chip.  Everything is integer data and is
-compared exactly (tolerance 0).
+compared exactly (tolerance 0).  The port's replay's openings at zeta also
+go through the verifier's constraint check, which must accept them and
+reject a flipped LogUp or quotient opening.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,8 +30,10 @@ from zkmips_tpu.stark.challenger import DuplexChallenger as JChallenger
 from zkmips_tpu_torch import convert
 from zkmips_tpu_torch.machine.machine import MipsMachine
 from zkmips_tpu_torch.machine.pv import NUM_PV
+from zkmips_tpu_torch.ops import ext4, field as f
 from zkmips_tpu_torch.parallel import kernels as tk
 from zkmips_tpu_torch.stark.chip import Chip
+from zkmips_tpu_torch.stark.machine import VerificationError, _verify_chip_constraints
 
 torch.set_num_threads(2)
 N = convert.to_numpy
@@ -111,6 +116,54 @@ def test_port_host_replay_equals_the_reference(chip_name):
     for name, value in refs[0]["challenges"].items():
         assert np.array_equal(N(got["challenges"][name]), value), name
     assert np.array_equal(N(got["state"]), N(mesh_out(chip_name, "1x1")["states"][0]))
+
+
+@functools.lru_cache(maxsize=None)
+def port_replays(chip_name: str) -> list:
+    traces, _digests, pvs, _refs = shards(chip_name)
+    return [tk.host_stage_reference(port_chip(chip_name), traces[i], pvs[i]) for i in range(len(pvs))]
+
+
+def zeta_check(chip_name: str, i: int, opened=None):
+    """The verifier's constraint check at zeta over shard ``i``'s replay
+    openings (or ``opened``); raises ``VerificationError`` on a mismatch."""
+    ref, c = port_replays(chip_name)[i], port_replays(chip_name)[i]["challenges"]
+    pv_monty = f.to_monty(convert.to_torch(shards(chip_name)[2][i]).reshape(-1))
+    _verify_chip_constraints(port_chip(chip_name), ref["opened"] if opened is None else opened,
+                             c["zeta"], c["alpha_q"], [c["alpha"], c["beta"]], pv_monty)
+
+
+@pytest.mark.parametrize("chip_name", ["Branch", "Cpu"])
+def test_zeta_check_accepts_the_replays_openings(chip_name):
+    """Each shard's openings of the matrices the replay committed (its roots
+    the reference's) satisfy the chip's constraints at zeta."""
+    _traces, _digests, _pvs, refs = shards(chip_name)
+    for i, (got, ref) in enumerate(zip(port_replays(chip_name), refs)):
+        for _key, ref_key in KEYS:
+            assert np.array_equal(N(got[ref_key]), ref[ref_key]), f"{ref_key} differs in shard {i}"
+        ov = got["opened"]
+        assert ov.log_degree == _traces.shape[1].bit_length() - 1
+        assert len(ov.quotient) == port_chip(chip_name).quotient_chunks
+        zeta_check(chip_name, i)
+
+
+@pytest.mark.parametrize("part", ["perm_local", "quotient"])
+@pytest.mark.parametrize("chip_name", ["Branch", "Cpu"])
+def test_zeta_check_rejects_a_tampered_opening(chip_name, part):
+    """One ext element of the LogUp opening, or of one quotient chunk's,
+    moved by one: the check at zeta rejects it."""
+    ov = port_replays(chip_name)[1]["opened"]
+    if part == "perm_local":
+        t = ov.perm_local.clone()
+        t[0] = ext4.add(t[0], ext4.one())
+        bad = dataclasses.replace(ov, perm_local=t)
+    else:
+        q = [c.clone() for c in ov.quotient]
+        q[0][0] = ext4.add(q[0][0], ext4.one())
+        bad = dataclasses.replace(ov, quotient=q)
+    with pytest.raises(VerificationError, match="constraint identity failed at zeta"):
+        zeta_check(chip_name, 1, bad)
+    zeta_check(chip_name, 1)  # the untouched openings still pass
 
 
 @pytest.mark.gpu

@@ -186,6 +186,7 @@ def _warmup(config, device, quick: bool = False) -> int:
     if failed:
         print(f"warmup: {len(failed)} of {len(progs)} guests failed: {', '.join(failed)}", flush=True)
         return 1
+    print(f"warmup: {len(progs)} guests proved and verified", flush=True)
     return 0
 
 

@@ -44,6 +44,29 @@ def observe_heights(machine, records) -> list[dict]:
     return out
 
 
+def _mixed(n: int):
+    """The corpus's ALU-mix guest: ``n`` rounds of MUL, XOR, SLT, SLL and
+    DIVU.  Its DIVU names LO as ``op_a``, as the decoder writes every
+    DIV/DIVU/MULT/MULTU (``executor/instruction.py``): the quotient goes to
+    LO and the remainder to HI, and the CPU chip's write at ``op_a`` must
+    name the register the executor wrote.  (The reference's copy names
+    ``$t7``, which no decoded word gives and its DivRem rows do not prove.)"""
+    from ..executor import Opcode as O, Register as R, asm
+
+    body = [*asm.li(R.T0, 1), *asm.li(R.T1, 3), *asm.li(R.T2, n)]
+    body += [
+        asm.alu(O.MUL, R.T3, R.T0, R.T1),
+        asm.alu(O.XOR, R.T4, R.T3, R.T2),
+        asm.alu(O.SLT, R.T5, R.T4, R.T1),
+        asm.alu(O.SLL, R.T6, R.T4, R.T1),
+        asm.alu(O.DIVU, R.LO, R.T4, R.T1),
+        asm.addi(R.T2, R.T2, -1 & 0xFFFFFFFF),
+        asm.branch(O.BGTZ, R.T2, 0, -24),
+        asm.nop(),
+    ]
+    return asm.prog(body + asm.halt_sequence())
+
+
 def corpus_programs() -> list:
     """Representative guests: ALU-heavy (fib at several scales crossing shard
     boundaries), memory-heavy, each precompile family, and the keccak chain.
@@ -87,21 +110,7 @@ def corpus_programs() -> list:
 
     progs.append(("mem20k", memory_sweep(20_000)))
 
-    def mixed(n):
-        body = [*asm.li(R.T0, 1), *asm.li(R.T1, 3), *asm.li(R.T2, n)]
-        body += [
-            asm.alu(O.MUL, R.T3, R.T0, R.T1),
-            asm.alu(O.XOR, R.T4, R.T3, R.T2),
-            asm.alu(O.SLT, R.T5, R.T4, R.T1),
-            asm.alu(O.SLL, R.T6, R.T4, R.T1),
-            asm.alu(O.DIVU, R.T7, R.T4, R.T1),
-            asm.addi(R.T2, R.T2, -1 & 0xFFFFFFFF),
-            asm.branch(O.BGTZ, R.T2, 0, -24),
-            asm.nop(),
-        ]
-        return asm.prog(body + asm.halt_sequence())
-
-    progs.append(("mixed30k", mixed(30_000)))
+    progs.append(("mixed30k", _mixed(30_000)))
 
     progs.append(("keccak", guests.keccak_message_program(b"shape corpus " * 64)))
     progs.append(("sha256", guests.sha256_message_program(b"shape corpus guest")))

@@ -44,6 +44,8 @@ from ..ops import ext4, field as f, ntt, poseidon2 as p2, septic
 from ..stark import pcs, permutation, quotient
 from ..stark.challenger import DuplexChallenger
 from ..stark.domain import Domain
+from ..stark.machine import ChipOpenedValues
+from ..utils.logger import span
 
 
 def _as_int32(a) -> torch.Tensor:
@@ -132,6 +134,24 @@ def _mesh_lde(trace: torch.Tensor, row: list) -> torch.Tensor:
     return torch.cat([lde.to(row[0]) for lde in ldes], dim=1)
 
 
+def _openings(trace, prep, flat, doms, chunks, cum, zeta) -> ChipOpenedValues:
+    """The openings of a stage's committed matrices as ``prove_shard``'s open
+    phase computes them: the main, preprocessed and LogUp traces at zeta and
+    zeta * g, and each quotient chunk at zeta on its own domain."""
+    dom = Domain(trace.shape[0].bit_length() - 1, 1)
+    pts = [zeta, dom.next_point_ext(zeta)]
+
+    def at(mat, d, points):
+        return pcs.eval_at_ext_points(ntt.ntt(mat, inverse=True), d, points)
+
+    main, perm = at(trace, dom, pts), at(flat, dom, pts)
+    pre = [None, None] if prep is None else at(prep, dom, pts)
+    return ChipOpenedValues(
+        preprocessed_local=pre[0], preprocessed_next=pre[1], main_local=main[0], main_next=main[1],
+        perm_local=perm[0], perm_next=perm[1], quotient=[at(c, d, [zeta])[0] for d, c in zip(doms, chunks)],
+        local_cumulative_sum=cum.cpu(), global_sum=None, log_degree=dom.log_n)
+
+
 def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: int,
            plain: bool) -> dict:
     """Stage a and stage b of one shard on its device, with the transcript
@@ -139,7 +159,9 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     alpha and beta, the LogUp trace and its commit, the folding challenge,
     the quotient and its commit; then the evaluations at zeta, the reduced
     vector and the fold chain.  Also returns the final sponge state and the
-    challenges.  ``plain`` hashes every tree with the plain Poseidon2."""
+    challenges.  ``plain`` (the replay) hashes every tree with the plain
+    Poseidon2, keeps the LogUp trace and the quotient chunks to the end and
+    also returns the openings at zeta (``_openings``) as ``opened``."""
     dev = trace.device
     h, w = trace.shape
     log_h = h.bit_length() - 1
@@ -152,8 +174,9 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     ch.observe_slice(ext4.to_canonical(cum))
     alpha_q = ch.sample_ext()
     pv_monty = f.to_monty(_as_int32(pv).reshape(-1))
-    _doms, chunks = quotient.quotient_chunks(
+    doms, chunks = quotient.quotient_chunks(
         chip, trace, prep, flat, pv_monty, [alpha, beta], cum, None, alpha_q)
+    kept = (flat, doms, chunks) if plain else None
     del flat
     q_root = _commit(torch.cat(chunks, dim=1), plain)
     del chunks
@@ -169,12 +192,16 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
         fold_roots.append(r)
         ch.observe_digest(r)
         cur = pcs._fold_step(cur, ch.sample_ext(), None, lh)
-    return {
+    out = {
         "perm_root": perm_root, "quotient_root": q_root, "fold_roots": torch.stack(fold_roots),
         "final_poly": cur[0], "cum_sum": cum, "state": torch.tensor(ch.state, dtype=torch.int32),
         "challenges": {"alpha": alpha, "beta": beta, "alpha_q": alpha_q, "zeta": zeta,
                        "fri_alpha": fri_alpha},
     }
+    if kept is not None:
+        with span("replay.openings"):
+            out["opened"] = _openings(trace, prep, *kept, cum, zeta)
+    return out
 
 
 def make_multichip_step(mesh, chip=None, prep=None, batch_size: int = 2):
@@ -260,7 +287,14 @@ def host_stage_reference(chip, trace, pv, prep=None, batch_size: int = 2) -> dic
     shard by shard.  Every Merkle tree (the three commits and the fold
     roots) is hashed by the plain torch Poseidon2 (``hash_matrix_rows_plain``,
     ``compress_plain``): on a card the replay launches no kernel, and so
-    holds K1 and K2 at the step's own shapes against their plain versions."""
+    holds K1 and K2 at the step's own shapes against their plain versions.
+
+    Also returns ``opened``, the ``ChipOpenedValues`` of the committed main,
+    LogUp and quotient matrices at zeta (and zeta * g): with the
+    ``challenges`` and the public values in Montgomery form, the verifier's
+    ``_verify_chip_constraints`` holds the LogUp trace and the quotient to
+    the chip's constraints at zeta, on a path that shares no code with
+    ``permutation`` or ``quotient``."""
     trace = _as_int32(trace)
     prep = None if prep is None else _as_int32(prep).to(trace.device)
     lde = ntt.coset_lde_bitrev(trace, log_blowup=1)
