@@ -26,6 +26,7 @@ from ..device import resolve_device
 from ..executor import Executor, NativeUnsupported, Program, execute_for_proving
 from ..machine.machine import MipsMachine
 from ..stark.machine import StarkConfig
+from ..utils.logger import span
 
 
 class ZKMStdin:
@@ -258,12 +259,13 @@ class ProverClient:
                 raise ValueError("the network backend's SNARK draws its randomness on the server")
             return self.remote.prove(pk, program, stdin, shard_size=shard_size, mode=mode)
         device = None if self.backend == "mock" else self._device()
-        records, info = execute_for_proving(
-            program,
-            stdin_bufs=stdin.buffers if stdin is not None else (),
-            proof_stream=stdin.proofs if stdin is not None else (),
-            shard_size=shard_size,
-        )
+        with span("client.execute"):
+            records, info = execute_for_proving(
+                program,
+                stdin_bufs=stdin.buffers if stdin is not None else (),
+                proof_stream=stdin.proofs if stdin is not None else (),
+                shard_size=shard_size,
+            )
         if self.backend == "mock":
             return ProofWithPublicValues([], info["public_values"], info["digest"], mode="mock")
         cfg_name = self._config_name()
