@@ -8,12 +8,15 @@
                            | --only-examples NAME [NAME ...]]
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the Poseidon2 CUDA kernels from ``zkmips_tpu_torch/csrc`` and
-   prints what the compiler made of them: registers and spills (``ptxas``)
-   and the machine instructions of each kernel (``sass``, by opcode);
+2. builds the Poseidon2 CUDA kernels and the quotient's fold kernel from
+   ``zkmips_tpu_torch/csrc`` and prints what the compiler made of them:
+   registers and spills (``ptxas``) and the machine instructions of each
+   Poseidon2 kernel (``sass``, by opcode);
 3. holds every kernel bit for bit against its plain torch version on the
    card, first at edge vectors (the field's ends, middle and powers of two),
-   then at the shapes the prover gives them, and times both there;
+   then at the shapes the prover gives them, and times both there; the
+   fold kernel against the eager fold at the fib2 guest's Cpu, AddSub,
+   Branch and ShiftLeft chips and heights, with its bound;
    ``--only-kernels`` stops here, after the ``kernels`` line, with exit
    code 0 and without the last line;
 4. proves one STARK shard at the core FRI config (blowup 2, 84 queries,
@@ -189,6 +192,12 @@ the ``kernels`` line; after its first two results it lowers its priority
 is waited for (or stopped, after an ``--only-*`` part or a failure) before
 the script exits, as is the side process of step 14.
 
+Every prove on the card whose shard proofs a phase holds (the synthetic
+shard, the fib, streaming and keccak proves, each stage of the ladder, the
+placed prove) must launch the quotient's fold kernel exactly once for each
+chip of each shard proof, and the mesh step once a shard; the launch counts
+printed are both kernel libraries'.
+
 It exits non-zero, without the last line, when there is no CUDA device,
 when the package is missing, or when any phase fails.
 """
@@ -218,6 +227,9 @@ H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # s-box x^3 is two products, on 16 lanes in each of 8 external rounds and on
 # lane 0 in each of 13 internal rounds; the internal diagonal needs none
 MULS_PER_PERM = (8 * 16 * 2 + 13 * 2) * 3
+# the fixed heights (log2 rows) of the fib2 benchmark guest's chips, at which
+# the fold kernel is held against the eager fold and timed
+FIB2_FOLD_HEIGHTS = {"Cpu": 20, "AddSub": 20, "Branch": 18, "ShiftLeft": 18}
 
 # --- the workload -------------------------------------------------------------
 #
@@ -441,6 +453,54 @@ def poseidon2_bound(perms: int, bytes_moved: int) -> tuple[float, str, float]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", max(t_bytes, t_int) * 1e3
 
 
+def quotient_fold_bound(chip, n: int) -> dict:
+    """Least time for the fold kernel's work over a quotient domain of ``n``
+    rows: the larger of the bytes it must move (the LDEs read once, the
+    chunks written once) over the HBM rate and its Montgomery products
+    (three 32-bit multiplies each) over the integer rate.  Per row the
+    products are the tape's, the next point x, the result times 1/Z_H, and
+    (where the tape reads FIRST or LAST) one inversion by a 31-bit power and
+    the four products around it.  Returns ms: ``bound_ms``, ``bound`` (which
+    of the two), ``bytes_ms``, ``multiplies_ms``."""
+    from zkmips_tpu_torch.stark import quotient_tape as qt
+
+    tape = qt.chip_tape(chip)
+    per_op = {qt.MUL_BB: 1, qt.MUL_EE: 16, qt.MUL_EB: 4, qt.FOLD_B: 4, qt.FOLD_E: 16}
+    products = sum(per_op.get(op, 0) for op in tape.code[:, 0].tolist()) + 1 + 4
+    if tape.invert:
+        e = P - 2
+        products += e.bit_length() + bin(e).count("1") + 5
+    widths = chip.main_width + chip.preprocessed_width + 4 * chip.perm_width_ext
+    t_bytes = (4 * n * widths + 16 * n) / H100_BYTES_PER_S * 1e3
+    t_int = products * n * 3 / H100_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_int), "bound": "bytes" if t_bytes > t_int else "integer multiplies",
+            "bytes_ms": t_bytes, "multiplies_ms": t_int}
+
+
+def reset_launches():
+    """Both kernel libraries' launch counts back to 0."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
+
+    poseidon2_cuda.reset_launches()
+    quotient_cuda.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Both kernel libraries' launches since ``reset_launches``."""
+    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
+
+    return {**poseidon2_cuda.LAUNCHES, **quotient_cuda.LAUNCHES}
+
+
+def expect_one_fold_a_chip(tag: str, proofs, launches: dict):
+    """The quotient of every chip of every shard proof went through the
+    fold kernel, one launch each."""
+    chips = sum(len(p.chip_names) for p in proofs)
+    if launches["quotient_fold"] != chips:
+        raise AssertionError(f"{tag}: {launches['quotient_fold']} fold launches for the {chips} chips "
+                             f"of {len(proofs)} shard proofs")
+
+
 def rand_field(rng, shape, dev) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, P, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
 
@@ -533,7 +593,52 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
         print(f"time {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), at the integer rate {int_bound_ms:.4f} ms, "
               f"{perms / ms / 1e6:.4f} x 10^9 permutations/s [{card}]", flush=True)
+    out["quotient_fold"] = quotient_fold_phase(dev, rng, card)
     return out
+
+
+def quotient_fold_phase(dev, rng, card: str) -> dict:
+    """The fold kernel against the eager fold (``quotient.fold_chunks_eager``,
+    the plain version) on the card at the fib2 guest's chips and heights, on
+    random Montgomery traces extended as the prover extends them: equal
+    chunks required; both timed.  Returns the kernel's record, timed at the
+    Cpu chip's shape, with every chip's times under ``by_chip``."""
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark import quotient
+
+    chips = {c.name: c for c in mips_machine(minimal=True).machine.chips}
+    by_chip = {}
+    for name, log_h in FIB2_FOLD_HEIGHTS.items():
+        chip, h = chips[name], 1 << log_h
+        lqd = chip.log_quotient_degree
+        lde = lambda t: None if t is None else quotient.lde_onto_quotient_domain(t, log_h, lqd)
+        prep = rand_field(rng, (h, chip.preprocessed_width), dev) if chip.preprocessed_width else None
+        perm = rand_field(rng, (h, 4 * chip.perm_width_ext), dev) if chip.perm_width_ext else None
+        args = (chip, lde(rand_field(rng, (h, chip.main_width), dev)), lde(prep), lde(perm), log_h,
+                rand_field(rng, (64,), "cpu"), [rand_field(rng, (4,), "cpu"), rand_field(rng, (4,), "cpu")],
+                rand_field(rng, (4,), "cpu"), rand_field(rng, (14,), "cpu"), rand_field(rng, (4,), "cpu"))
+        got, want = quotient.fold_chunks_kernel(*args), quotient.fold_chunks_eager(*args)
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        print(f"kernel quotient_fold {name} at 2^{log_h} rows (2^{log_h + lqd} on the quotient domain): "
+              f"max_abs_err {err}", flush=True)
+        if err != 0 or len(got) != len(want) or any(g.shape != w.shape for g, w in zip(got, want)):
+            raise AssertionError(f"quotient_fold {name} disagrees with the eager fold")
+        del got, want
+        rec = {"ms": cuda_ms(lambda: quotient.fold_chunks_kernel(*args), 5),
+               "plain_ms": cuda_ms(lambda: quotient.fold_chunks_eager(*args), 1),
+               **quotient_fold_bound(chip, h << lqd)}
+        by_chip[name] = {k: v if isinstance(v, str) else round(v, 4) for k, v in rec.items()}
+        print(f"time quotient_fold {name} at 2^{log_h + lqd} rows: kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound']}) [{card}]", flush=True)
+        del args
+    cpu = by_chip["Cpu"]
+    return {
+        "name": "quotient_fold", "route": "cuda", "source": "zkmips_tpu_torch/csrc/quotient.cu",
+        "replaces": "zkmips_tpu/stark/blocks.py quotient_chunks_blocked (XLA's fusion)", "launches": 0,
+        "max_abs_err": 0, "ms": cpu["ms"], "plain_ms": cpu["plain_ms"], "bound_ms": cpu["bound_ms"],
+        "bound_by": cpu["bound"], "library_ms": None, "shape": f"Cpu 2^{FIB2_FOLD_HEIGHTS['Cpu']} rows",
+        "by_chip": by_chip,
+    }
 
 
 def print_kernels(records: dict):
@@ -734,7 +839,6 @@ def mips_phase(args, dev, card: str, cpu: CpuSide) -> dict:
 
     from zkmips_tpu_torch.executor import execute_for_proving, native_trace, stream_for_proving
     from zkmips_tpu_torch.machine.machine import mips_machine
-    from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.stark.machine import StarkConfig
     from zkmips_tpu_torch.utils import logger
     from zkmips_tpu_torch.verifier import stark_codec as codec
@@ -763,14 +867,15 @@ def mips_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     logger.configure(enabled=True, sync=True, echo=False)
     logger.spans_reset()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proofs = machine.prove(pk, records)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
+    expect_one_fold_a_chip("mips", proofs, launches)
     print_shards("mips", proofs, card)
     print(f"mips prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
           f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
@@ -868,15 +973,16 @@ def keccak_phase(args, dev, card: str) -> dict:
     logger.configure(enabled=True, sync=True, echo=False)
     logger.spans_reset()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proofs = machine.prove(pk, records)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = sorted(poseidon2_cuda.HASH_SHAPES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
+    expect_one_fold_a_chip("keccak", proofs, launches)
     print_shards("keccak", proofs, card)
     print_fills("keccak", proofs, card)
     print(f"keccak prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
@@ -1008,7 +1114,6 @@ def stream_phase(args, dev, card: str) -> dict:
     rejected.  Returns the kernels' launch counts over the streamed prove."""
     from zkmips_tpu_torch.executor import stream_for_proving
     from zkmips_tpu_torch.machine.machine import mips_machine
-    from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.stark.machine import StarkConfig
     from zkmips_tpu_torch.verifier import stark_codec as codec
 
@@ -1033,13 +1138,14 @@ def stream_phase(args, dev, card: str) -> dict:
             yield r
 
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proofs = machine.prove_streaming(pk, timed(stream_for_proving(program, shard_size=FULL_SHARD_CYCLES)),
                                      workers=1, split_threshold=DEFAULT_SPLIT_THRESHOLD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
+    expect_one_fold_a_chip("stream", proofs, launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     cycles = produced["cycles"]
     if len(proofs) != produced["records"] or len(proofs) < 2:
@@ -1163,12 +1269,12 @@ def ladder_stage(name: str, fn, card: str):
     logger.configure(enabled=True, sync=True, echo=False)
     logger.spans_reset()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = sorted(poseidon2_cuda.HASH_SHAPES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     spans = logger.spans_report()
@@ -1243,21 +1349,25 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide, beside=None) -> dict:
         return b
 
     layer, stages["lift"] = ladder_stage("lift", lambda: [rp.lift(pk.vk, p) for p in proofs], card)
+    expect_one_fold_a_chip("ladder lift", [p for p, _vk in layer], stages["lift"]["launches"])
     stages["lift"]["proof_bytes"] = [len(codec.encode_core_proof([p])) for p, _vk in layer]
     for i, (p, _vk) in enumerate(layer):
         print_recursion_shape(f"lift {i + 1}", p, card)
     done["compress"], stages["compress"] = ladder_stage(
         "compress", lambda: rp.join(layer, len(proofs)), card)
     print_recursion_shape("compress", done["compress"].proof, card)
+    expect_one_fold_a_chip("ladder compress", [done["compress"].proof], stages["compress"]["launches"])
     check("compress", done["compress"])
     del layer, proofs
     done["shrink"], stages["shrink"] = ladder_stage("shrink", lambda: rp.shrink(done["compress"]), card)
     print_recursion_shape("shrink", done["shrink"].proof, card)
+    expect_one_fold_a_chip("ladder shrink", [done["shrink"].proof], stages["shrink"]["launches"])
     check("shrink", done["shrink"])
     if beside is not None:
         beside()
     done["wrap"], stages["wrap"] = ladder_stage("wrap", lambda: rp.wrap(done["shrink"]), card)
     print_recursion_shape("wrap", done["wrap"].proof, card)
+    expect_one_fold_a_chip("ladder wrap", [done["wrap"].proof], stages["wrap"]["launches"])
     wrap_bytes = check("wrap", done["wrap"])
     if done["wrap"].proof.main_root.dtype != object:
         raise AssertionError("ladder wrap: the digests are not BN254 scalars")
@@ -1406,13 +1516,12 @@ def snark_counts(run, echo: bool = True) -> tuple:
     ``echo``, each span and count printed on stderr as it ends, so a cut run
     shows how far it got); returns (output, {part: seconds}, notes, launches,
     resident GiB before)."""
-    from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.utils import logger
 
     rss0, _ = host_rss_gib()
     logger.configure(enabled=True, echo=echo)
     logger.spans_reset()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     try:
         out = run()
         spans, notes = logger.spans_report(), logger.notes_report()
@@ -1420,7 +1529,7 @@ def snark_counts(run, echo: bool = True) -> tuple:
         logger.configure(enabled=False, echo=False)
     seconds = {k.removeprefix("snark."): round(v[0], 4) for k, v in spans.items() if k.startswith("snark.")}
     notes = {k.removeprefix("snark."): v for k, v in notes.items() if k.startswith("snark.")}
-    return out, seconds, notes, dict(poseidon2_cuda.LAUNCHES), rss0
+    return out, seconds, notes, launch_counts(), rss0
 
 
 def expect_not_accepted(what: str, fn, errors):
@@ -1650,7 +1759,6 @@ def sdk_phase(mode: str, card: str) -> dict:
     import copy
 
     from zkmips_tpu_torch.executor import execute_for_proving
-    from zkmips_tpu_torch.ops import poseidon2_cuda
     from zkmips_tpu_torch.sdk import ProofWithPublicValues, ProverClient, ZKMStdin
     from zkmips_tpu_torch.snark import outer_circuit
     from zkmips_tpu_torch.stark.machine import StarkConfig, VerificationError
@@ -1664,9 +1772,9 @@ def sdk_phase(mode: str, card: str) -> dict:
     snark_launches = {}
 
     def counted(*a, **kw):  # the launches of the SNARK alone, beside the ladder's
-        before = dict(poseidon2_cuda.LAUNCHES)
+        before = launch_counts()
         out = wrap_fn(*a, **kw)
-        snark_launches.update({k: v - before.get(k, 0) for k, v in poseidon2_cuda.LAUNCHES.items()})
+        snark_launches.update({k: v - before.get(k, 0) for k, v in launch_counts().items()})
         return out
 
     def run():
@@ -1843,18 +1951,20 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
     step = mk.make_multichip_step(grid, chip=chip)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = step(traces, digests, pvs, states0)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches, shapes = dict(poseidon2_cuda.LAUNCHES), set(poseidon2_cuda.HASH_SHAPES)
+    launches, shapes = launch_counts(), set(poseidon2_cuda.HASH_SHAPES)
+    if launches["quotient_fold"] != s:
+        raise AssertionError(f"mesh: {launches['quotient_fold']} fold launches for {s} shards")
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name in ("poseidon2_hash_rows", "poseidon2_compress"):
         if launches[name] == 0:
             raise AssertionError(f"mesh: kernel {name} was not launched by the mesh step")
     t0 = time.perf_counter()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     keys = (("main_roots", "main_root"), ("perm_roots", "perm_root"), ("quotient_roots", "quotient_root"),
             ("fold_roots", "fold_roots"), ("final_polys", "final_poly"), ("cum_sums", "cum_sum"),
             ("states", "state"))
@@ -1872,8 +1982,8 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
         logger.configure(enabled=False)
     replay_s = time.perf_counter() - t0
     openings_s = logger.spans_report()["replay.openings"][0]
-    if any(poseidon2_cuda.LAUNCHES.values()):
-        raise AssertionError(f"mesh: the plain host replay launched kernels: {dict(poseidon2_cuda.LAUNCHES)}")
+    if any(launch_counts().values()):
+        raise AssertionError(f"mesh: the plain host replay launched kernels: {launch_counts()}")
     zeta_s = mesh_zeta_check(chip, replays, pvs)
     if not mk.septic_identity_host(out["all_digests"]):
         raise AssertionError("mesh: the septic identity rejected the gathered digests")
@@ -1916,12 +2026,13 @@ def placement_check(machine, pk, records, proofs, card: str) -> dict:
     devices = [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0", "cuda:0"]
     want = codec.encode_core_proof(proofs)
     torch.cuda.synchronize()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     placed = machine.prove(pk, records, devices=devices)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
+    expect_one_fold_a_chip("placement", placed, launches)
     if codec.encode_core_proof(placed) != want:
         raise AssertionError("placement: the placed proofs' bytes differ from the single-device proofs'")
     for name, k in launches.items():
@@ -2264,8 +2375,6 @@ def run_example(name: str, card: str) -> dict:
     device memory, the kernels' launches from 0 and what it returned."""
     import importlib
 
-    from zkmips_tpu_torch.ops import poseidon2_cuda
-
     argv = [os.path.join(ROOT, a) if a.startswith(FIXTURES) else a for a in EXAMPLE_ARGV.get(name, [])]
     if name == "plonk":
         host = host_total_bytes()
@@ -2277,12 +2386,12 @@ def run_example(name: str, card: str) -> dict:
     mod = importlib.import_module(f"zkmips_tpu_torch.examples.{name}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = mod.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
     if name != "cycle_tracking" and not all(launches.values()):  # cycle_tracking only executes
         raise AssertionError(f"example {name}: a kernel was not launched: {launches}")
     if name == "real_guest" and not out.get("present"):
@@ -2481,14 +2590,15 @@ class PhaseClock:
 def run_phases(args, dev, rng, card: str, cpu) -> bool:
     """Every phase of the run; True when the whole script ran (the kernels
     line printed), False after an ``--only-*`` part."""
-    from zkmips_tpu_torch.ops import poseidon2_cuda
+    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
     from zkmips_tpu_torch.stark.machine import VerificationError
     from zkmips_tpu_torch.utils import logger
 
     t_script = t0 = time.perf_counter()
     lib = poseidon2_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
+    fold_lib = quotient_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}, {fold_lib.name}", flush=True)
+    for line in (lib.with_suffix(".log").read_text() + fold_lib.with_suffix(".log").read_text()).splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     sass = poseidon2_cuda.sass_counts(lib)
@@ -2546,14 +2656,15 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     print(f"setup: {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
     logger.spans_reset()
     torch.cuda.reset_peak_memory_stats()
-    poseidon2_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proof = machine.prove_shard(pk, record, pv)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = dict(poseidon2_cuda.LAUNCHES)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
+    expect_one_fold_a_chip("synthetic shard", [proof], launches)
     stages = {k: round(v[0], 4) for k, v in logger.spans_report().items()}
     print(f"prove_shard: {prove_s:.3f} s, peak device memory {peak_gb:.2f} GiB [{card}]", flush=True)
     print("stages: " + json.dumps({"card": card, "seconds": stages}), flush=True)

@@ -20,13 +20,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from zkmips_tpu_torch.ops import poseidon2_cuda  # noqa: E402
+from zkmips_tpu_torch.utils import cbuild  # noqa: E402
 
 
 def main() -> int:
     src = Path(__file__).with_suffix(".cu")
     exe = ROOT / "build" / "int_pipe_microbench"
     exe.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([poseidon2_cuda._nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-O3",
+    subprocess.run([cbuild.nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-O3",
                     "-o", str(exe), str(src)], check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

@@ -139,8 +139,9 @@ def main(argv=None) -> int:
 
 
 def _warmup(config, device, quick: bool = False) -> int:
-    """Build what the port compiles on first use -- the Poseidon2 kernels
-    (``csrc/poseidon2.cu``, on a CUDA device), the trace executor, the
+    """Build what the port compiles on first use -- the Poseidon2 kernels and
+    the quotient's fold kernel (``csrc/poseidon2.cu``, ``csrc/quotient.cu``,
+    on a CUDA device), the trace executor, the
     recursion runtime and the BN254 library -- into ``build/``, then prove
     and verify each guest of ``shape_gen.corpus_programs()`` on ``device``
     (``quick``: without the fib200000 and keccak_chain12000 guests).  A
@@ -160,9 +161,9 @@ def _warmup(config, device, quick: bool = False) -> int:
     t0 = time.perf_counter()
     libs = [native_trace.library(), build(native_runtime._SRC), build(bn254_native._SRC, ("-fopenmp",))]
     if dev.type == "cuda":
-        from .ops import poseidon2_cuda
+        from .ops import poseidon2_cuda, quotient_cuda
 
-        libs.insert(0, str(poseidon2_cuda.build()))
+        libs[:0] = [str(poseidon2_cuda.build()), str(quotient_cuda.build())]
     for lib in libs:
         print(f"built {lib}", flush=True)
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)

@@ -18,8 +18,6 @@ without touching the handle the wrappers here use.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import re
 import subprocess
 import threading
@@ -27,20 +25,15 @@ from pathlib import Path
 
 import torch
 
+from ..utils import cbuild
 from . import poseidon2 as p2
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "poseidon2.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
 
 LAUNCHES = {"poseidon2_hash_rows": 0, "poseidon2_compress": 0, "poseidon2_permute": 0}
 _COUNT_LOCK = threading.Lock()  # shards proved in several threads launch side by side
 
 _LIB = None
-_BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
 _READY_LOCK = threading.Lock()  # threads load the library and each device's constants once
 _CONSTANTS_ON: set = set()  # device indices whose constant memory is loaded
 
@@ -56,37 +49,12 @@ def reset_launches():
     HASH_SHAPES.clear()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build(source: Path | None = None) -> Path:
     """Compile the kernels (once per source version); returns the library path.
 
     The compiler's output (``-Xptxas=-v``: registers and spills per kernel)
     is kept beside the library as ``<name>.log``."""
-    source = Path(source or SOURCE)
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libzkm_poseidon2-{tag}.so"
-    if lib.exists():
-        return lib
-    with _BUILD_LOCK:
-        if lib.exists():  # another thread built it while this one waited
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    return lib
+    return cbuild.build_cuda(Path(source or SOURCE), "libzkm_poseidon2")
 
 
 _SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -100,7 +68,7 @@ _KERNEL_NAMES = (
 def disassemble(lib: Path | None = None) -> str | None:
     """``cuobjdump -sass`` of the built library (or any CUDA binary); None
     where the toolkit has no ``cuobjdump`` or it fails."""
-    tool = Path(_nvcc()).with_name("cuobjdump")
+    tool = Path(cbuild.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
     proc = subprocess.run([str(tool), "-sass", str(lib or build())], capture_output=True, text=True)

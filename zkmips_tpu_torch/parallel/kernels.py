@@ -160,7 +160,8 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     the quotient and its commit; then the evaluations at zeta, the reduced
     vector and the fold chain.  Also returns the final sponge state and the
     challenges.  ``plain`` (the replay) hashes every tree with the plain
-    Poseidon2, keeps the LogUp trace and the quotient chunks to the end and
+    Poseidon2, folds the quotient with the eager ``air.fold_constraints``,
+    keeps the LogUp trace and the quotient chunks to the end and
     also returns the openings at zeta (``_openings``) as ``opened``."""
     dev = trace.device
     h, w = trace.shape
@@ -175,7 +176,7 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     alpha_q = ch.sample_ext()
     pv_monty = f.to_monty(_as_int32(pv).reshape(-1))
     doms, chunks = quotient.quotient_chunks(
-        chip, trace, prep, flat, pv_monty, [alpha, beta], cum, None, alpha_q)
+        chip, trace, prep, flat, pv_monty, [alpha, beta], cum, None, alpha_q, plain=plain)
     kept = (flat, doms, chunks) if plain else None
     del flat
     q_root = _commit(torch.cat(chunks, dim=1), plain)
@@ -286,8 +287,9 @@ def host_stage_reference(chip, trace, pv, prep=None, batch_size: int = 2) -> dic
     column split, no thread.  Holds the mesh step to the reference's values
     shard by shard.  Every Merkle tree (the three commits and the fold
     roots) is hashed by the plain torch Poseidon2 (``hash_matrix_rows_plain``,
-    ``compress_plain``): on a card the replay launches no kernel, and so
-    holds K1 and K2 at the step's own shapes against their plain versions.
+    ``compress_plain``) and the quotient folded by the eager walk: on a card
+    the replay launches no kernel, and so holds K1, K2 and the fold kernel at
+    the step's own shapes against their plain versions.
 
     Also returns ``opened``, the ``ChipOpenedValues`` of the committed main,
     LogUp and quotient matrices at zeta (and zeta * g): with the
