@@ -203,8 +203,8 @@ def test_span_paths_are_per_thread():
         spans, notes = logger.spans_report(), logger.notes_report()
     finally:
         logger.configure(enabled=False)
-    assert set(spans) == {"outer0", "outer0/inner", "outer1", "outer1/inner", "main",
-                          "main/fill.x", "main/fill.x/deeper"}
+    assert {p for p in spans if not p.startswith("gc.gen")} == {  # the collector's spans aside
+        "outer0", "outer0/inner", "outer1", "outer1/inner", "main", "main/fill.x", "main/fill.x/deeper"}
     assert notes == {"outer0/inner/rows": 0, "outer1/inner/rows": 1, "main/fill.x/rows": 7}
 
 

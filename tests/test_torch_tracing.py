@@ -1,13 +1,16 @@
 """The port's spans (``utils/logger.py``): no span fences the device, every
 closed span leaves one timeline record on the profiler's clock, the report is
-the timeline's sums, and ``ProverClient.prove`` times its executor as the
-top-level ``client.execute``.
+the timeline's sums, ``ProverClient.prove`` times its executor as the
+top-level ``client.execute``, and while spans are on each run of the cyclic
+garbage collector is a top-level ``gc.gen<N>`` span of the thread that ran
+it (the collector spans are left out where a test counts the program's own).
 
 On the CPU a simulated device stands in for the card's events (its queue runs
 behind the host by what the test enqueues); the ``gpu`` twins hold the same on
 the card."""
 
 import contextlib
+import gc
 import threading
 import time
 
@@ -86,6 +89,26 @@ def fake_cuda(monkeypatch):
     return dev
 
 
+def _collection(path: str) -> bool:
+    """A span of the cyclic garbage collector."""
+    return path.startswith("gc.gen")
+
+
+def _program_spans(report: dict) -> dict:
+    """The report without the collector's spans."""
+    return {p: v for p, v in report.items() if not _collection(p)}
+
+
+@contextlib.contextmanager
+def _no_collections():
+    """No automatic collection inside the block (the test counts records)."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def _by_path(records) -> dict:
     return {r.path: r for r in records}
 
@@ -97,7 +120,7 @@ def test_sync_spans_never_synchronize(spans, monkeypatch):
             torch.ones(8).sum()
     with logger.span("c", parent="a"):
         pass
-    assert set(logger.spans_report()) == {"a", "a/b", "a/c"}
+    assert set(_program_spans(logger.spans_report())) == {"a", "a/b", "a/c"}
     assert all(r.start_ns is None for r in logger.timeline())
 
 
@@ -147,7 +170,7 @@ def test_sync_off_records_no_events(spans, fake_cuda):
     with logger.span("a"):
         fake_cuda.enqueue(0.01)
     fake_cuda.allow_sync()
-    (rec,) = logger.timeline()
+    (rec,) = [r for r in logger.timeline() if not _collection(r.path)]
     assert rec.start_ns is None and fake_cuda.syncs == []
 
 
@@ -167,7 +190,7 @@ def test_report_is_the_timelines_sums(spans, fake_cuda):
             with logger.span("fill", parent="job"):
                 pass
     fake_cuda.allow_sync()
-    report, records = logger.spans_report(), logger.timeline()
+    report, records = _program_spans(logger.spans_report()), logger.timeline()
     assert set(report) == {"job", "job/step", "job/fill"}
     for path, (secs, n) in report.items():
         mine = [r for r in records if r.path == path]
@@ -177,9 +200,10 @@ def test_report_is_the_timelines_sums(spans, fake_cuda):
 
 def test_records_past_the_cap_still_count(spans, monkeypatch):
     monkeypatch.setattr(logger, "TIMELINE_CAP", 2)
-    for _ in range(5):
-        with logger.span("s"):
-            pass
+    with _no_collections():
+        for _ in range(5):
+            with logger.span("s"):
+                pass
     assert len(logger.timeline()) == 2
     assert logger.timeline_dropped() == 3
     assert logger.spans_report()["s"][1] == 5
@@ -222,6 +246,38 @@ def test_client_prove_times_its_executor(spans):
     assert "shard1/prove.trace_gen" in report
     assert not any(p.startswith("client.execute/") for p in report)
     assert client.verify(vk, proof, program)
+
+
+def test_a_forced_collection_is_a_top_level_span(spans):
+    with logger.span("outer"):
+        gc.collect()
+    recs = [r for r in logger.timeline() if r.path == "gc.gen2"]
+    outer = _by_path(logger.timeline())["outer"]
+    assert len(recs) == 1
+    (rec,) = recs
+    assert rec.thread == threading.current_thread().name and rec.start_ns is None
+    assert outer.host_start_ns <= rec.host_start_ns <= rec.host_end_ns <= outer.host_end_ns
+    assert logger.spans_report()["gc.gen2"][1] == 1
+
+
+def test_a_collection_is_recorded_in_the_thread_that_ran_it(spans):
+    t = threading.Thread(target=gc.collect, name="collector-test")
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    assert [r.thread for r in logger.timeline() if _collection(r.path)] == ["collector-test"]
+
+
+def test_no_collector_callback_while_tracing_is_off(spans):
+    assert gc.callbacks.count(logger._gc_span) == 1
+    logger.configure(enabled=True)
+    assert gc.callbacks.count(logger._gc_span) == 1
+    logger.configure(enabled=False)
+    assert logger._gc_span not in gc.callbacks
+    gc.collect()
+    assert logger.timeline() == []
+    logger.configure(enabled=True)
+    assert gc.callbacks.count(logger._gc_span) == 1
 
 
 # ----------------------------------------------------------------- the card

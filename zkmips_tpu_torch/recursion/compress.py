@@ -8,8 +8,9 @@ programs that enforce the shard chain rules in-circuit and fold the two
 records (machine/compress.rs:94-480 analog), until one O(1) proof remains.
 
 Programs are cached by (vk, proof-shape) key — the reference's per-shape
-recursion program LRU (lib.rs:366-438); odd nodes are promoted to the next
-level unchanged (expected-height rule, lib.rs:631-639).
+recursion program LRU (lib.rs:366-438), kept for good and so frozen out of
+the cyclic collector's walks once built (``utils.heap``); odd nodes are
+promoted to the next level unchanged (expected-height rule, lib.rs:631-639).
 
 Trust model: child vks are baked into each parent program as constants,
 so the final program's identity transitively pins the whole tree down to
@@ -22,7 +23,9 @@ passes another (``device="cpu"``); circuit building, execution and
 verification are host work.  Each stage's parts are timed as spans
 (``utils/logger``): ``<stage>.circuit``, ``<stage>.setup``,
 ``<stage>.execute`` and ``<stage>.prove`` (the prover's own spans nested
-under it), for the stages lift, compress, shrink, wrap and deferred.
+under it), for the stages lift, compress, shrink, wrap and deferred; each
+program built is noted with its instruction count
+(``recursion.<stage>.instructions``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch
 
 from ..device import resolve_device
 from ..stark.machine import VerificationError, VerifyingKey
-from ..utils.logger import span
+from ..utils.heap import freeze_long_lived
+from ..utils.logger import note, span
 from .machine import RecursionMachine
 from .rec_pv import canonical_digest
 from .verifier import (
@@ -136,28 +140,33 @@ class RecursionProver:
 
     # -- program caches ------------------------------------------------------
 
+    @staticmethod
+    def _build(cache: dict, key, stage: str, machine, device, circuit):
+        """Build ``stage``'s program (``circuit()``) and its proving key once
+        for ``key``: cached for good, so taken out of the collector's walks."""
+        with span(f"{stage}.circuit"):
+            circ = circuit()
+        with span(f"{stage}.setup"):
+            pk = machine.setup(circ.program, device=device)
+        note(f"recursion.{stage}.instructions", len(circ.program.instructions))
+        cache[key] = (circ, pk)
+        freeze_long_lived()
+        return circ, pk
+
     def _lift_entry(self, core_vk, template_proof, device=None):
         key = (_vk_key(core_vk), _shape_key(template_proof))
         entry = self._lift_cache.get(key)
         if entry is None:
-            with span("lift.circuit"):
-                circ = ShardVerifierCircuit(self.core.machine, core_vk, template_proof)
-            with span("lift.setup"):
-                pk = self.rec.setup(circ.program, device=device)
-            entry = (circ, pk)
-            self._lift_cache[key] = entry
+            entry = self._build(self._lift_cache, key, "lift", self.rec, device,
+                                lambda: ShardVerifierCircuit(self.core.machine, core_vk, template_proof))
         return entry
 
     def _compress_entry(self, left_vk, right_vk, tl, tr, device=None):
         key = (_vk_key(left_vk), _vk_key(right_vk), _shape_key(tl), _shape_key(tr))
         entry = self._compress_cache.get(key)
         if entry is None:
-            with span("compress.circuit"):
-                circ = CompressVerifierCircuit(self.rec.machine, left_vk, right_vk, tl, tr)
-            with span("compress.setup"):
-                pk = self.rec.setup(circ.program, device=device)
-            entry = (circ, pk)
-            self._compress_cache[key] = entry
+            entry = self._build(self._compress_cache, key, "compress", self.rec, device,
+                                lambda: CompressVerifierCircuit(self.rec.machine, left_vk, right_vk, tl, tr))
         return entry
 
     # -- proving -------------------------------------------------------------
@@ -247,12 +256,8 @@ class RecursionProver:
         key = (stage, _vk_key(child_vk), _shape_key(cp.proof))
         entry = self._shrink_cache.get(key)
         if entry is None:
-            with span(f"{stage}.circuit"):
-                circ = ShrinkVerifierCircuit(child_machine.machine, child_vk, cp.proof)
-            with span(f"{stage}.setup"):
-                pk = prover_machine.setup(circ.program, device=device)
-            entry = (circ, pk)
-            self._shrink_cache[key] = entry
+            entry = self._build(self._shrink_cache, key, stage, prover_machine, device,
+                                lambda: ShrinkVerifierCircuit(child_machine.machine, child_vk, cp.proof))
         circ, pk = entry
         with span(f"{stage}.execute"):
             record = prover_machine.execute(circ.program, circ.witness(cp.proof))
@@ -285,12 +290,8 @@ class RecursionProver:
         key = ("deferred", _vk_key(child_vk), _shape_key(child_cp.proof))
         entry = self._deferred_cache.get(key)
         if entry is None:
-            with span("deferred.circuit"):
-                circ = DeferredVerifierCircuit(self.rec.machine, child_vk, child_cp.proof)
-            with span("deferred.setup"):
-                pk = self.rec.setup(circ.program, device=device)
-            entry = (circ, pk)
-            self._deferred_cache[key] = entry
+            entry = self._build(self._deferred_cache, key, "deferred", self.rec, device,
+                                lambda: DeferredVerifierCircuit(self.rec.machine, child_vk, child_cp.proof))
         circ, pk = entry
         witness_obj = (child_cp.proof, [int(x) for x in prev_digest])
         with span("deferred.execute"):

@@ -26,6 +26,7 @@ from ..device import resolve_device
 from ..executor import Executor, NativeUnsupported, Program, execute_for_proving
 from ..machine.machine import MipsMachine
 from ..stark.machine import StarkConfig
+from ..utils.heap import freeze_long_lived
 from ..utils.logger import span
 
 
@@ -208,6 +209,7 @@ class ProverClient:
         if self.remote is not None:
             return self.remote.setup(program)
         pk = self.machine.setup(program, device=self._device())
+        freeze_long_lived()  # the machine's constraint DAGs and the key live as long as the client
         return pk, pk.vk
 
     def execute(self, program: Program, stdin: ZKMStdin | None = None,

@@ -23,6 +23,13 @@ onto the host's.  The report then gives settled seconds.  Spans opened with
 ``parent=``, spans opened while CUDA is not initialised, and every span while
 sync is off record no events and report host time.
 
+While spans are on, every run of Python's cyclic garbage collector is a
+top-level host span ``gc.gen<N>`` (N the oldest generation it collected),
+recorded with the name of the thread that ran it: a ``gc.callbacks`` entry,
+registered only while spans are on.  A collection holds the interpreter lock,
+so it pauses every thread and is no child of the span it interrupted; its
+length is the collecting thread's CPU time.  Such spans are not echoed.
+
 Each thread has its own span stack and its own notes, so spans opened in
 worker threads nest under that thread's path.  A worker that does part of a
 caller's span passes the caller's ``current_path()`` as ``span(...,
@@ -33,6 +40,7 @@ side by side can add up to more than their enclosing ``prove.trace_gen``.
 
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import threading
@@ -76,6 +84,11 @@ _OVERFLOW: dict[str, list] = defaultdict(lambda: [0.0, 0])  # path: [host second
 _LOCAL = threading.local()  # per thread: .stack, .notes, .gen
 _ALL_NOTES: list[dict] = []  # every thread's notes since the last reset
 _GEN = [0]  # bumped by spans_reset: a thread's older notes dict is dropped
+# Collections closed and not yet in the timeline: (thread, path, t0, t1) in
+# counter ns.  The gc callback only appends here, without _LOCK, since a
+# collection may start inside any bytecode, including a holder of _LOCK.
+_GC_CLOSED: list[tuple] = []
+_GC_T0 = [0]  # thread CPU ns at the start of the running collection (one runs at a time)
 
 
 def _clock_offset() -> int:
@@ -94,6 +107,28 @@ def configure(enabled: bool | None = None, sync: bool | None = None, echo: bool 
     for key, val in (("enabled", enabled), ("sync", sync), ("echo", echo)):
         if val is not None:
             _CFG[key] = val
+    _track_collections()
+
+
+def _gc_span(phase: str, info: dict):
+    """The ``gc.callbacks`` entry: one collection as a closed span, as long
+    as the thread's CPU time between the two callbacks (a wait for the
+    interpreter lock around them is no part of the pause) and ending now."""
+    if phase == "start":
+        _GC_T0[0] = time.thread_time_ns()
+        return
+    cpu = time.thread_time_ns() - _GC_T0[0]
+    t1 = time.perf_counter_ns()
+    _GC_CLOSED.append((threading.current_thread().name, f"gc.gen{info['generation']}", t1 - cpu, t1))
+
+
+def _track_collections():
+    """Register ``_gc_span`` exactly while spans are on."""
+    registered = _gc_span in gc.callbacks
+    if _CFG["enabled"] and not registered:
+        gc.callbacks.append(_gc_span)
+    elif not _CFG["enabled"] and registered:
+        gc.callbacks.remove(_gc_span)
 
 
 def _record_event():
@@ -140,19 +175,36 @@ def _settle():
                                         end_ns=max(r.host_end_ns, d1))
 
 
+def _append(thread: str, path: str, t0: int, t1: int, entry=None, exit_=None):
+    """Add the record of a span that ran from counter time t0 to t1 (the
+    caller holds _LOCK)."""
+    if len(_TIMELINE) >= TIMELINE_CAP:
+        over = _OVERFLOW[path]
+        over[0] += (t1 - t0) / 1e9
+        over[1] += 1
+        return
+    if entry is not None and entry[0] == exit_[0]:
+        _PENDING.append((len(_TIMELINE), entry[0], entry[1], exit_[1]))
+    off = _OFFSET[0]
+    _TIMELINE.append(SpanRecord(thread, path, t0 + off, t1 + off, None, None))
+
+
+def _drain_collections():
+    """Move the closed collections into the timeline (the caller holds _LOCK)."""
+    n = len(_GC_CLOSED)
+    if n:
+        closed = _GC_CLOSED[:n]
+        del _GC_CLOSED[:n]
+        for rec in closed:
+            _append(*rec)
+
+
 def _close(path: str, t0: int, t1: int, entry, exit_):
     """Append the record of a span that ran from counter time t0 to t1."""
-    off = _OFFSET[0]
-    rec = SpanRecord(threading.current_thread().name, path, t0 + off, t1 + off, None, None)
+    thread = threading.current_thread().name
     with _LOCK:
-        if len(_TIMELINE) >= TIMELINE_CAP:
-            over = _OVERFLOW[path]
-            over[0] += (t1 - t0) / 1e9
-            over[1] += 1
-            return
-        if entry is not None and entry[0] == exit_[0]:
-            _PENDING.append((len(_TIMELINE), entry[0], entry[1], exit_[1]))
-        _TIMELINE.append(rec)
+        _drain_collections()
+        _append(thread, path, t0, t1, entry, exit_)
 
 
 def _stack() -> list:
@@ -229,12 +281,14 @@ def timeline() -> list:
     (settled first: read it after the device's work is done)."""
     _settle()
     with _LOCK:
+        _drain_collections()
         return _TIMELINE[:]
 
 
 def timeline_dropped() -> int:
     """Spans closed past ``TIMELINE_CAP`` since the last reset."""
     with _LOCK:
+        _drain_collections()
         return sum(n for _secs, n in _OVERFLOW.values())
 
 
@@ -257,6 +311,10 @@ def spans_reset():
         _TIMELINE.clear()
         _PENDING.clear()
         _OVERFLOW.clear()
+        del _GC_CLOSED[:]
         _ALL_NOTES.clear()
         _GEN[0] += 1
         _OFFSET[0] = _clock_offset()
+
+
+_track_collections()
