@@ -477,19 +477,46 @@ def quotient_fold_bound(chip, n: int) -> dict:
             "bytes_ms": t_bytes, "multiplies_ms": t_int}
 
 
+def logup_bound(chip, h: int) -> dict:
+    """Least time for the LogUp kernels' work over ``h`` rows: the larger of
+    the bytes they must move (the lookup columns read once, the permutation
+    trace written once) over the HBM rate and their Montgomery products
+    (three 32-bit multiplies each) over the integer rate.  Per row the
+    products are the tape's (a base product 1, a beta power times a value 4),
+    then with n lookups either one ext inverse and 3 (n - 1) ext products
+    (n > 2) or n ext inverses, and n ext-by-base products; an ext inverse is
+    16 products and a base inverse by a 31-bit power; an ext product 16.
+    Returns ms: ``bound_ms``, ``bound`` (which of the two), ``bytes_ms``,
+    ``multiplies_ms``."""
+    from zkmips_tpu_torch.stark import logup_tape as lt, quotient_tape as qt
+
+    tape = lt.chip_logup(chip, chip.batch_size)
+    n = tape.n_lookups
+    per_op = {qt.MUL_BB: 1, lt.LK_DEN: 4}
+    e = P - 2
+    ext_inv = 16 + e.bit_length() + bin(e).count("1")
+    products = sum(per_op.get(op, 0) for op in tape.code[:, 0].tolist()) + 4 * n
+    products += ext_inv + 16 * 3 * (n - 1) if n > 2 else n * ext_inv
+    t_bytes = (4 * h * tape.n_cols + 16 * h * tape.width) / H100_BYTES_PER_S * 1e3
+    t_int = products * h * 3 / H100_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_int), "bound": "bytes" if t_bytes > t_int else "integer multiplies",
+            "bytes_ms": t_bytes, "multiplies_ms": t_int}
+
+
 def reset_launches():
-    """Both kernel libraries' launch counts back to 0."""
-    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
+    """The kernel libraries' launch counts back to 0."""
+    from zkmips_tpu_torch.ops import logup_cuda, poseidon2_cuda, quotient_cuda
 
     poseidon2_cuda.reset_launches()
     quotient_cuda.reset_launches()
+    logup_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
-    """Both kernel libraries' launches since ``reset_launches``."""
-    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
+    """The kernel libraries' launches since ``reset_launches``."""
+    from zkmips_tpu_torch.ops import logup_cuda, poseidon2_cuda, quotient_cuda
 
-    return {**poseidon2_cuda.LAUNCHES, **quotient_cuda.LAUNCHES}
+    return {**poseidon2_cuda.LAUNCHES, **quotient_cuda.LAUNCHES, **logup_cuda.LAUNCHES}
 
 
 def expect_one_fold_a_chip(tag: str, proofs, launches: dict):
@@ -499,6 +526,18 @@ def expect_one_fold_a_chip(tag: str, proofs, launches: dict):
     if launches["quotient_fold"] != chips:
         raise AssertionError(f"{tag}: {launches['quotient_fold']} fold launches for the {chips} chips "
                              f"of {len(proofs)} shard proofs")
+
+
+def expect_logup_a_chip(tag: str, proofs, launches: dict):
+    """The LogUp trace of every chip with lookups (a permutation trace
+    opened) of every shard proof went through the LogUp kernels, their
+    launches a chip each."""
+    from zkmips_tpu_torch.ops import logup_cuda
+
+    chips = sum(ov.perm_local.numel() > 0 for p in proofs for ov in p.opened)
+    if launches["logup"] != logup_cuda.KERNELS_A_CHIP * chips:
+        raise AssertionError(f"{tag}: {launches['logup']} LogUp launches for the {chips} chips with "
+                             f"lookups of {len(proofs)} shard proofs")
 
 
 def rand_field(rng, shape, dev) -> torch.Tensor:
@@ -594,7 +633,54 @@ def kernel_phase(dev, rng, main_hash_w: int, card: str) -> dict:
               f"bound {bound_ms:.4f} ms ({bound_by}), at the integer rate {int_bound_ms:.4f} ms, "
               f"{perms / ms / 1e6:.4f} x 10^9 permutations/s [{card}]", flush=True)
     out["quotient_fold"] = quotient_fold_phase(dev, rng, card)
+    out["logup"] = logup_phase(dev, rng, card)
     return out
+
+
+def logup_phase(dev, rng, card: str) -> dict:
+    """The LogUp kernels against the eager path
+    (``permutation.generate_permutation_trace_eager``, the plain version) on
+    the card at the fib2 guest's chips and heights, on random Montgomery
+    traces and challenges: equal permutation traces and cumulative sums
+    required; both timed.  Returns the kernels' record, timed at the Cpu
+    chip's shape, with every chip's times under ``by_chip``."""
+    from zkmips_tpu_torch.machine.machine import mips_machine
+    from zkmips_tpu_torch.stark import logup_tape as lt, permutation
+
+    chips = {c.name: c for c in mips_machine(minimal=True).machine.chips}
+    by_chip = {}
+    for name, log_h in FIB2_FOLD_HEIGHTS.items():
+        chip, h = chips[name], 1 << log_h
+        main = rand_field(rng, (h, chip.main_width), dev)
+        alpha, beta = rand_field(rng, (4,), "cpu"), rand_field(rng, (4,), "cpu")
+        (got,), (got_cum,) = permutation.generate_permutation_traces(
+            [(chip, None, main, chip.batch_size)], alpha, beta)
+        eager = lambda: permutation.generate_permutation_trace_eager(chip, None, main, alpha, beta,
+                                                                     chip.batch_size)
+        want, want_cum = eager()
+        err = max(max_err(got, want), max_err(got_cum, want_cum))
+        print(f"kernel logup {name} at 2^{log_h} rows: max_abs_err {err}", flush=True)
+        if err != 0 or got.shape != want.shape:
+            raise AssertionError(f"logup {name} disagrees with the eager path")
+        del got, want
+        # timed without the shard's one read-back of the cumulative sums
+        tape = lt.chip_logup(chip, chip.batch_size)
+        chal = lt.challenge_table(alpha, beta, tape.n_pows).to(dev)
+        total = torch.zeros(4, dtype=torch.int32, device=dev)
+        kernels = lambda: permutation.generate_permutation_trace_kernel(chip, tape, None, main, chal, total)
+        rec = {"ms": cuda_ms(kernels, 5), "plain_ms": cuda_ms(eager, 1), **logup_bound(chip, h)}
+        by_chip[name] = {k: v if isinstance(v, str) else round(v, 4) for k, v in rec.items()}
+        print(f"time logup {name} at 2^{log_h} rows: kernels {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound']}) [{card}]", flush=True)
+        del main
+    cpu = by_chip["Cpu"]
+    return {
+        "name": "logup", "route": "cuda", "source": "zkmips_tpu_torch/csrc/logup.cu",
+        "replaces": "zkmips_tpu/stark/permutation.py _prefix_sum and blocks.py perm_trace_blocked (XLA)",
+        "launches": 0, "max_abs_err": 0, "ms": cpu["ms"], "plain_ms": cpu["plain_ms"],
+        "bound_ms": cpu["bound_ms"], "bound_by": cpu["bound"], "library_ms": None,
+        "shape": f"Cpu 2^{FIB2_FOLD_HEIGHTS['Cpu']} rows", "by_chip": by_chip,
+    }
 
 
 def quotient_fold_phase(dev, rng, card: str) -> dict:
@@ -876,6 +962,7 @@ def mips_phase(args, dev, card: str, cpu: CpuSide) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
     expect_one_fold_a_chip("mips", proofs, launches)
+    expect_logup_a_chip("mips", proofs, launches)
     print_shards("mips", proofs, card)
     print(f"mips prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
           f"{cycles / prove_s:.1f} cycles proved per second, peak device memory {peak_gb:.2f} GiB "
@@ -983,6 +1070,7 @@ def keccak_phase(args, dev, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
     expect_one_fold_a_chip("keccak", proofs, launches)
+    expect_logup_a_chip("keccak", proofs, launches)
     print_shards("keccak", proofs, card)
     print_fills("keccak", proofs, card)
     print(f"keccak prove: {prove_s:.3f} s for {cycles} cycles in {len(proofs)} shards, "
@@ -1146,6 +1234,7 @@ def stream_phase(args, dev, card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts()
     expect_one_fold_a_chip("stream", proofs, launches)
+    expect_logup_a_chip("stream", proofs, launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     cycles = produced["cycles"]
     if len(proofs) != produced["records"] or len(proofs) < 2:
@@ -1350,6 +1439,7 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide, beside=None) -> dict:
 
     layer, stages["lift"] = ladder_stage("lift", lambda: [rp.lift(pk.vk, p) for p in proofs], card)
     expect_one_fold_a_chip("ladder lift", [p for p, _vk in layer], stages["lift"]["launches"])
+    expect_logup_a_chip("ladder lift", [p for p, _vk in layer], stages["lift"]["launches"])
     stages["lift"]["proof_bytes"] = [len(codec.encode_core_proof([p])) for p, _vk in layer]
     for i, (p, _vk) in enumerate(layer):
         print_recursion_shape(f"lift {i + 1}", p, card)
@@ -1357,17 +1447,20 @@ def recursion_phase(args, dev, card: str, cpu: CpuSide, beside=None) -> dict:
         "compress", lambda: rp.join(layer, len(proofs)), card)
     print_recursion_shape("compress", done["compress"].proof, card)
     expect_one_fold_a_chip("ladder compress", [done["compress"].proof], stages["compress"]["launches"])
+    expect_logup_a_chip("ladder compress", [done["compress"].proof], stages["compress"]["launches"])
     check("compress", done["compress"])
     del layer, proofs
     done["shrink"], stages["shrink"] = ladder_stage("shrink", lambda: rp.shrink(done["compress"]), card)
     print_recursion_shape("shrink", done["shrink"].proof, card)
     expect_one_fold_a_chip("ladder shrink", [done["shrink"].proof], stages["shrink"]["launches"])
+    expect_logup_a_chip("ladder shrink", [done["shrink"].proof], stages["shrink"]["launches"])
     check("shrink", done["shrink"])
     if beside is not None:
         beside()
     done["wrap"], stages["wrap"] = ladder_stage("wrap", lambda: rp.wrap(done["shrink"]), card)
     print_recursion_shape("wrap", done["wrap"].proof, card)
     expect_one_fold_a_chip("ladder wrap", [done["wrap"].proof], stages["wrap"]["launches"])
+    expect_logup_a_chip("ladder wrap", [done["wrap"].proof], stages["wrap"]["launches"])
     wrap_bytes = check("wrap", done["wrap"])
     if done["wrap"].proof.main_root.dtype != object:
         raise AssertionError("ladder wrap: the digests are not BN254 scalars")
@@ -1933,7 +2026,7 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
     the step's widest leaf against its plain version; then the card's step
     against the CPU's at 64-cycle shards (Branch and Cpu chips).  Returns
     the kernels' launches over the step."""
-    from zkmips_tpu_torch.ops import field as f, poseidon2_cuda
+    from zkmips_tpu_torch.ops import field as f, logup_cuda, poseidon2_cuda
     from zkmips_tpu_torch.parallel import kernels as mk
     from zkmips_tpu_torch.utils import logger
 
@@ -1959,6 +2052,8 @@ def mesh_phase(args, dev, card: str, cpu) -> dict:
     launches, shapes = launch_counts(), set(poseidon2_cuda.HASH_SHAPES)
     if launches["quotient_fold"] != s:
         raise AssertionError(f"mesh: {launches['quotient_fold']} fold launches for {s} shards")
+    if launches["logup"] != logup_cuda.KERNELS_A_CHIP * s:
+        raise AssertionError(f"mesh: {launches['logup']} LogUp launches for {s} shards")
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name in ("poseidon2_hash_rows", "poseidon2_compress"):
         if launches[name] == 0:
@@ -2033,6 +2128,7 @@ def placement_check(machine, pk, records, proofs, card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts()
     expect_one_fold_a_chip("placement", placed, launches)
+    expect_logup_a_chip("placement", placed, launches)
     if codec.encode_core_proof(placed) != want:
         raise AssertionError("placement: the placed proofs' bytes differ from the single-device proofs'")
     for name, k in launches.items():
@@ -2590,15 +2686,15 @@ class PhaseClock:
 def run_phases(args, dev, rng, card: str, cpu) -> bool:
     """Every phase of the run; True when the whole script ran (the kernels
     line printed), False after an ``--only-*`` part."""
-    from zkmips_tpu_torch.ops import poseidon2_cuda, quotient_cuda
+    from zkmips_tpu_torch.ops import logup_cuda, poseidon2_cuda, quotient_cuda
     from zkmips_tpu_torch.stark.machine import VerificationError
     from zkmips_tpu_torch.utils import logger
 
     t_script = t0 = time.perf_counter()
-    lib = poseidon2_cuda.build()
-    fold_lib = quotient_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}, {fold_lib.name}", flush=True)
-    for line in (lib.with_suffix(".log").read_text() + fold_lib.with_suffix(".log").read_text()).splitlines():
+    libs = [poseidon2_cuda.build(), quotient_cuda.build(), logup_cuda.build()]
+    lib = libs[0]
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {', '.join(l.name for l in libs)}", flush=True)
+    for line in "".join(l.with_suffix(".log").read_text() for l in libs).splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     sass = poseidon2_cuda.sass_counts(lib)
@@ -2665,6 +2761,7 @@ def run_phases(args, dev, rng, card: str, cpu) -> bool:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logger.configure(enabled=False)
     expect_one_fold_a_chip("synthetic shard", [proof], launches)
+    expect_logup_a_chip("synthetic shard", [proof], launches)
     stages = {k: round(v[0], 4) for k, v in logger.spans_report().items()}
     print(f"prove_shard: {prove_s:.3f} s, peak device memory {peak_gb:.2f} GiB [{card}]", flush=True)
     print("stages: " + json.dumps({"card": card, "seconds": stages}), flush=True)

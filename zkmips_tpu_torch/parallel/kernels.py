@@ -160,7 +160,8 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     the quotient and its commit; then the evaluations at zeta, the reduced
     vector and the fold chain.  Also returns the final sponge state and the
     challenges.  ``plain`` (the replay) hashes every tree with the plain
-    Poseidon2, folds the quotient with the eager ``air.fold_constraints``,
+    Poseidon2, takes the eager LogUp trace, folds the quotient with the eager
+    ``air.fold_constraints``,
     keeps the LogUp trace and the quotient chunks to the end and
     also returns the openings at zeta (``_openings``) as ``opened``."""
     dev = trace.device
@@ -169,7 +170,7 @@ def _stage(chip, prep, trace, lde, root, pv, ch: DuplexChallenger, batch_size: i
     log_max = log_h + 1
     ch.observe_digest(root)
     alpha, beta = ch.sample_ext(), ch.sample_ext()
-    flat, cum = permutation.generate_permutation_trace(chip, prep, trace, alpha, beta, batch_size)
+    flat, cum = permutation.generate_permutation_trace(chip, prep, trace, alpha, beta, batch_size, plain)
     perm_root = _commit(flat, plain)
     ch.observe_digest(perm_root)
     ch.observe_slice(ext4.to_canonical(cum))
@@ -287,9 +288,10 @@ def host_stage_reference(chip, trace, pv, prep=None, batch_size: int = 2) -> dic
     column split, no thread.  Holds the mesh step to the reference's values
     shard by shard.  Every Merkle tree (the three commits and the fold
     roots) is hashed by the plain torch Poseidon2 (``hash_matrix_rows_plain``,
-    ``compress_plain``) and the quotient folded by the eager walk: on a card
-    the replay launches no kernel, and so holds K1, K2 and the fold kernel at
-    the step's own shapes against their plain versions.
+    ``compress_plain``), the LogUp trace taken by the eager path and the
+    quotient folded by the eager walk: on a card the replay launches no
+    kernel, and so holds K1, K2, the LogUp kernels and the fold kernel at the
+    step's own shapes against their plain versions.
 
     Also returns ``opened``, the ``ChipOpenedValues`` of the committed main,
     LogUp and quotient matrices at zeta (and zeta * g): with the

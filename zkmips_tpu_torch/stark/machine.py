@@ -256,13 +256,12 @@ class StarkMachine:
         ch.observe_digest(main_data.root)
         perm_challenges = [ch.sample_ext(), ch.sample_ext()]
 
-        perm_flats, cum_sums = {}, {}
         with span("prove.perm_traces"):
-            for chip in chips:
-                perm_flats[chip.name], cum_sums[chip.name] = permutation.generate_permutation_trace(
-                    chip, pk.prep_traces.get(chip.name), traces[chip.name],
-                    perm_challenges[0], perm_challenges[1], chip.batch_size,
-                )
+            flats, cums = permutation.generate_permutation_traces(
+                [(c, pk.prep_traces.get(c.name), traces[c.name], c.batch_size) for c in chips],
+                perm_challenges[0], perm_challenges[1],
+            )
+        perm_flats, cum_sums = dict(zip(names, flats)), dict(zip(names, cums))
         perm_names = [c.name for c in chips if c.perm_width_ext > 0]
         perm_data = None
         if perm_names:

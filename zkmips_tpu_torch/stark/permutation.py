@@ -9,18 +9,24 @@
   * global-scope chips bind their last-row trailing 14 main columns to the
     claimed global septic digest
 
-Trace generation runs over every row at once on the traces' device.  The
-denominators are inverted with the reference's batch inversion (one ext
+The denominators are inverted with the reference's batch inversion (one ext
 inverse over a running product when there are more than 2 lookups), so a
-zero denominator zeroes the same fractions as there.
+zero denominator zeroes the same fractions as there.  On a CUDA device the
+trace of a chip is three launches of the LogUp kernels
+(``ops/logup_cuda.py``) over the chip's tape (``logup_tape.py``, compiled
+once a chip), which write the chunk columns and the running sum in place and
+the cumulative sum into a device tensor of the shard, read back once for
+every chip.  On the CPU, and in a replay that launches no kernel
+(``plain``), the eager path evaluates every row at once with torch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import bits, ext4, field as f
-from . import air
+from ..ops import bits, ext4, field as f, logup_cuda
+from ..utils.logger import note
+from . import air, logup_tape
 from .air import AirBuilder, Challenge, Const, CumSumLocal, EvalContext, GlobalSumCoord, Scope, Var, eval_expr
 
 BATCH_SIZE = 2
@@ -44,9 +50,52 @@ def _lookup_chunks(sends, receives, batch_size):
     return [items[i : i + batch_size] for i in range(0, len(items), batch_size)]
 
 
-def generate_permutation_trace(chip, prep, main, alpha, beta, batch_size: int = BATCH_SIZE):
+def generate_permutation_trace(chip, prep, main, alpha, beta, batch_size: int = BATCH_SIZE,
+                               plain: bool = False):
     """Returns (perm_flat (H, 4*width) int32 on main's device, local
-    cumulative sum (4,) CPU int32)."""
+    cumulative sum (4,) CPU int32).  ``plain`` takes the eager path on a CUDA
+    device too."""
+    (flat,), (cum,) = generate_permutation_traces([(chip, prep, main, batch_size)], alpha, beta, plain)
+    return flat, cum
+
+
+def generate_permutation_traces(jobs, alpha, beta, plain: bool = False) -> tuple[list, list]:
+    """The permutation traces of a shard's chips, ``jobs`` a list of (chip,
+    prep, main, batch_size): (perm_flats, local cumulative sums (4,) CPU
+    int32).  On CUDA traces (and not ``plain``) every chip goes through the
+    kernels and the host waits once, for the cumulative sums of all."""
+    if plain or not any(main.is_cuda for _, _, main, _ in jobs):
+        out = [generate_permutation_trace_eager(c, p, m, alpha, beta, bs) for c, p, m, bs in jobs]
+        return [flat for flat, _ in out], [cum for _, cum in out]
+    dev = jobs[0][2].device
+    tapes = [logup_tape.chip_logup(c, bs) if any(local_lookups(c)) else None for c, _, _, bs in jobs]
+    n_pows = max((t.n_pows for t in tapes if t is not None), default=1)
+    chal = logup_tape.challenge_table(alpha, beta, n_pows).pin_memory().to(dev, non_blocking=True)
+    totals = torch.zeros((len(jobs), 4), dtype=torch.int32, device=dev)
+    flats = [generate_permutation_trace_kernel(c, tape, p, m, chal, totals[i])
+             for i, ((c, p, m, _), tape) in enumerate(zip(jobs, tapes))]
+    return flats, [t.clone() for t in totals.cpu()]
+
+
+def generate_permutation_trace_kernel(chip, tape, prep, main, chal, total) -> torch.Tensor:
+    """A chip's perm_flat by the LogUp kernels over its ``tape`` (None: no
+    local lookups, an empty trace), its cumulative sum written to ``total``
+    (a (4,) view on main's device, left as it is without lookups)."""
+    if tape is None:
+        return torch.zeros((main.shape[0], 0), dtype=torch.int32, device=main.device)
+    if air.PREPROCESSED in tape.reads and prep is None:
+        raise ValueError(f"logup: the {chip.name} tape reads the preprocessed trace, none given")
+    note(f"perm.tape.{chip.name}", tape.n_instr)
+    code, consts = tape.on(main.device)
+    return logup_cuda.permutation_trace(
+        code, consts, main, prep, chal, total, n_base=tape.n_base, n_lookups=tape.n_lookups,
+        batch_size=tape.batch_size)
+
+
+def generate_permutation_trace_eager(chip, prep, main, alpha, beta, batch_size: int = BATCH_SIZE):
+    """The plain version, on any device: every row at once, an int64 torch
+    launch or more per lookup and step.  Returns what
+    ``generate_permutation_trace`` does."""
     sends, receives = local_lookups(chip)
     h = main.shape[0]
     dev = main.device

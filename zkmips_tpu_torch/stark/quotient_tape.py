@@ -129,20 +129,49 @@ def compile_tape(constraints, lqd: int) -> Tape:
     """The tape of ``fold_constraints(constraints, ...)`` over a quotient
     domain of 2^lqd row classes."""
     order, readers = air._schedule(constraints)
-    places: dict = {}
-    for k, c in enumerate(constraints):
-        places.setdefault(id(c), []).append(k)
     consts: dict = {}
     for e in order:
         if isinstance(e, air.Const):
             consts.setdefault(f.to_monty_int(e.value), len(consts))
     tape = Tape(np.zeros((0, 4), np.int32), list(consts), 0, 0, len(constraints), lqd,
                 False, frozenset(), 0, False)
+    reads, n_pub, invert, gsum = set(), 0, False, False
+
+    def leaf(e) -> tuple[int, bool]:
+        nonlocal n_pub, invert, gsum
+        if isinstance(e, air.Var):
+            reads.add(e.segment)
+        elif isinstance(e, air.Public):
+            n_pub = max(n_pub, e.index + 1)
+        elif isinstance(e, air.GlobalSumCoord):
+            gsum = True
+        elif isinstance(e, air.Selector):
+            invert |= e.which != air.Selector.TRANSITION
+        return _leaf(e, tape, consts)
+
+    def place(k: int, word: int, ext: bool) -> tuple:
+        return (FOLD_E if ext else FOLD_B, tape.APOW + 4 * k, word, 0)
+
+    code, (tape.n_base, tape.n_ext) = emit(constraints, order, readers, leaf, place)
+    tape.code = np.array(code, dtype=np.int64).astype(np.int32).reshape(-1, 4)
+    tape.reads, tape.n_publics, tape.invert, tape.global_sum = frozenset(reads), n_pub, invert, gsum
+    return tape
+
+
+def emit(roots, order, readers, leaf, place) -> tuple[list, list]:
+    """The instructions of the DAG under ``roots`` (``order``, ``readers``:
+    ``air._schedule(roots)``): one for each operation node, into a slot of its
+    kind that is free again after its last reader, and ``place(k, word,
+    is_ext)`` for the k-th root, where ``leaf(e)`` gives a leaf's (operand
+    word, is_ext).  Returns the instructions and the base and ext slots a row
+    needs.  The LogUp tape (``logup_tape.py``) is emitted by it too."""
+    places: dict = {}
+    for k, c in enumerate(roots):
+        places.setdefault(id(c), []).append(k)
     code: list = []
     ref: dict = {}  # id(node) -> (operand word, is_ext) while the node has readers
     free: tuple = ([], [])  # released slots, base and ext
     count = [0, 0]
-    reads, n_pub, invert, gsum = set(), 0, False, False
 
     def release(word: int):
         kind, idx = split(word)
@@ -168,26 +197,15 @@ def compile_tape(constraints, lqd: int) -> Tape:
             code.append((op, dst, a, b))
             ref[id(e)] = (operand(K_ESLOT if ext else K_BSLOT, dst), ext)
         else:
-            ref[id(e)] = _leaf(e, tape, consts)
-            if isinstance(e, air.Var):
-                reads.add(e.segment)
-            elif isinstance(e, air.Public):
-                n_pub = max(n_pub, e.index + 1)
-            elif isinstance(e, air.GlobalSumCoord):
-                gsum = True
-            elif isinstance(e, air.Selector):
-                invert |= e.which != air.Selector.TRANSITION
+            ref[id(e)] = leaf(e)
         word, ext = ref[id(e)]
         for k in places.get(id(e), ()):
-            code.append((FOLD_E if ext else FOLD_B, tape.APOW + 4 * k, word, 0))
+            code.append(place(k, word, ext))
             readers[id(e)] -= 1
         if not readers[id(e)]:
             release(ref.pop(id(e))[0])
     assert not ref, "every value has been read"
-    tape.code = np.array(code, dtype=np.int64).astype(np.int32).reshape(-1, 4)
-    tape.n_base, tape.n_ext = count
-    tape.reads, tape.n_publics, tape.invert, tape.global_sum = frozenset(reads), n_pub, invert, gsum
-    return tape
+    return code, count
 
 
 def _leaf(e, tape: Tape, consts: dict) -> tuple[int, bool]:
